@@ -1,0 +1,42 @@
+"""CustomResNet3D voxel encoder (channel-last).
+
+Counterpart of `preworld_tpu/models/resnet.py` (`CustomResNet3D`, the BEV
+encoder backbone and the `pre_process` net).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+
+from .layers import BasicBlock
+
+
+class CustomResNet3D(nn.Module):
+    """Stacked 3-D BasicBlock stages; returns the requested stages."""
+
+    def __init__(self, in_channels: int, num_layer: Sequence[int] = (2, 2, 2),
+                 num_channels: Sequence[int] = (160, 320, 640),
+                 stride: Sequence[int] = (2, 2, 2),
+                 backbone_output_ids: Sequence[int] = (0, 1, 2)):
+        super().__init__()
+        self.num_layer = tuple(num_layer)
+        self.backbone_output_ids = tuple(backbone_output_ids)
+        cin = in_channels
+        for i, (n, c, s) in enumerate(zip(num_layer, num_channels, stride)):
+            setattr(self, f"layer{i}_block0",
+                    BasicBlock(cin, c, strides=s, downsample=True, ndim=3))
+            for j in range(1, n):
+                setattr(self, f"layer{i}_block{j}", BasicBlock(c, c, ndim=3))
+            cin = c
+
+    def forward(self, x) -> Tuple[torch.Tensor, ...]:
+        feats = []
+        for i, n in enumerate(self.num_layer):
+            for j in range(n):
+                x = getattr(self, f"layer{i}_block{j}")(x)
+            if i in self.backbone_output_ids:
+                feats.append(x)
+        return tuple(feats)
