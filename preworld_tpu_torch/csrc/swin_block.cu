@@ -31,16 +31,9 @@
 // 111 KB of shared memory two blocks share an SM. qkv and o round-trip
 // device memory between the kernels, about 5x the read-x / write-out
 // floor. Folding the chain into one kernel is later work.
-#include "gemm.cuh"
+#include "swin_attn.cuh"
 
 namespace pw {
-
-constexpr int AT_THREADS = 256;
-constexpr int AT_WARPS = AT_THREADS / 32;
-constexpr int AT_D = 32;          // head dim of every Swin-B stage
-constexpr int AT_LDQ = AT_D + 8;  // bf16 stride of q / k / v tiles
-constexpr int AT_MAXN = 144;      // tokens per window, at most
-constexpr int AT_CPL = (AT_MAXN + 31) / 32;  // score columns per lane
 
 struct AttnSmem {
   int N, ldS;
@@ -188,6 +181,33 @@ window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ rel_b
   }
 }
 
+cudaError_t attn_qkv_o(const bf16* x, const float* ln_w, const float* ln_b,
+                       const bf16* wqkv, const float* bqkv, const float* rel_bias,
+                       const int* region, bf16* qkv, bf16* o, int B, int Hp, int Wp, int C,
+                       int heads, int ws, int H, int W, int shift, float scale,
+                       cudaStream_t stream) {
+  const int M = B * Hp * Wp;
+  cudaError_t err;
+  GemmArgs a = gemm_args(x, wqkv, bqkv, qkv, M, 3 * C, C);
+  a.ln_w = ln_w; a.ln_b = ln_b;
+  a.pad_mask = 1; a.Hp = Hp; a.Wp = Wp; a.Hv = H; a.Wv = W;
+  gemm_bf16<PRO_LN, EPI_BIAS>(a, stream);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+  const AttnSmem L(ws * ws);
+  err = cudaFuncSetAttribute(window_attn_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(window_attn_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 blocks(B * (Hp / ws) * (Wp / ws), heads);
+  window_attn_kernel<<<blocks, AT_THREADS, L.total, stream>>>(
+      qkv, rel_bias, region, o, Hp, Wp, C, ws, shift, scale);
+  return cudaGetLastError();
+}
+
 }  // namespace pw
 
 using pw::bf16;
@@ -204,29 +224,11 @@ extern "C" int pw_swin_attn_block(
     float scale, void* stream_ptr) {
   cudaStream_t stream = reinterpret_cast<cudaStream_t>(stream_ptr);
   const int M = B * Hp * Wp;
-  cudaError_t err;
-
-  pw::GemmArgs a = pw::gemm_args(static_cast<const bf16*>(x), static_cast<const bf16*>(wqkv),
-                                 bqkv, static_cast<bf16*>(qkv_buf), M, 3 * C, C);
-  a.ln_w = ln_w; a.ln_b = ln_b;
-  a.pad_mask = 1; a.Hp = Hp; a.Wp = Wp; a.Hv = H; a.Wv = W;
-  pw::gemm_bf16<pw::PRO_LN, pw::EPI_BIAS>(a, stream);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int N = ws * ws;
-  pw::AttnSmem L(N);
-  err = cudaFuncSetAttribute(pw::window_attn_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+  cudaError_t err = pw::attn_qkv_o(
+      static_cast<const bf16*>(x), ln_w, ln_b, static_cast<const bf16*>(wqkv), bqkv,
+      rel_bias, region, static_cast<bf16*>(qkv_buf), static_cast<bf16*>(o_buf), B, Hp, Wp,
+      C, heads, ws, H, W, shift, scale, stream);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(pw::window_attn_kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 blocks(B * (Hp / ws) * (Wp / ws), heads);
-  pw::window_attn_kernel<<<blocks, pw::AT_THREADS, L.total, stream>>>(
-      static_cast<const bf16*>(qkv_buf), rel_bias, region, static_cast<bf16*>(o_buf),
-      Hp, Wp, C, ws, shift, scale);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   pw::GemmArgs p = pw::gemm_args(static_cast<const bf16*>(o_buf), static_cast<const bf16*>(wproj),
                                  bproj, static_cast<bf16*>(out), M, C, C);

@@ -1,8 +1,10 @@
-"""Synthetic predict batches (numpy) for tests and the card smoke run.
+"""Synthetic batches (numpy) for tests and the card smoke run.
 
-Counterpart of the predict keys of `preworld_tpu/data/synthetic.py`: for
-the same config and seed, `synthetic_batch` returns arrays byte-identical
-to the JAX package's `synthetic_batch(..., with_labels=False)`.
+Counterpart of `preworld_tpu/data/synthetic.py` less the render rays and
+the trajectory keys: for the same config and seed, `synthetic_batch`
+returns arrays byte-identical to the JAX package's `synthetic_batch`, with
+the training keys `voxel_semantics`, `mask_camera` and `gt_depth` when
+`with_labels`.
 """
 
 from __future__ import annotations
@@ -51,10 +53,12 @@ def camera_rig(num_cams: int, input_size) -> Dict[str, np.ndarray]:
 
 
 def synthetic_batch(cfg: PreWorldConfig, batch_size: int = 1,
-                    seed: int = 0) -> Dict[str, np.ndarray]:
-    """Random-but-consistent predict inputs: normal images, the camera
-    ring, an ego driving forward 0.4 m per frame back in time, identity
-    post-augs and BEV augmentation."""
+                    seed: int = 0, with_labels: bool = False
+                    ) -> Dict[str, np.ndarray]:
+    """Random-but-consistent inputs: normal images, the camera ring, an
+    ego driving forward 0.4 m per frame back in time, identity post-augs
+    and BEV augmentation; with `with_labels`, uniform random occupancy
+    classes, a 70 % camera mask and a 10 % sparse lidar depth map."""
     rng = np.random.default_rng(seed)
     H, W = cfg.input_size
     B, T, N = batch_size, cfg.num_frames, cfg.num_cams
@@ -71,9 +75,19 @@ def synthetic_batch(cfg: PreWorldConfig, batch_size: int = 1,
         np.eye(3, dtype=np.float32), (B, T, N, 3, 3)).copy()
     post_trans = np.zeros((B, T, N, 3), np.float32)
     bda = np.broadcast_to(np.eye(3, dtype=np.float32), (B, 3, 3)).copy()
-    return {"imgs": imgs, "sensor2egos": sensor2egos,
-            "ego2globals": ego2globals, "intrins": intrins,
-            "post_rots": post_rots, "post_trans": post_trans, "bda": bda}
+    batch = {"imgs": imgs, "sensor2egos": sensor2egos,
+             "ego2globals": ego2globals, "intrins": intrins,
+             "post_rots": post_rots, "post_trans": post_trans, "bda": bda}
+    if not with_labels:
+        return batch
+    sx, sy, sz = (int(v) for v in cfg.grid.size)
+    sem = rng.integers(0, cfg.num_classes, (B, sx, sy, sz))
+    batch["voxel_semantics"] = sem.astype(np.int32)
+    batch["mask_camera"] = rng.uniform(size=sem.shape) > 0.3
+    batch["gt_depth"] = np.where(
+        rng.uniform(size=(B, N, H, W)) > 0.9,
+        rng.uniform(1.5, 20.0, (B, N, H, W)), 0.0).astype(np.float32)
+    return batch
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:

@@ -14,11 +14,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import BasicBlock, ConvNormAct, Mlp, SELayer, to_cf, to_cl
+from .layers import (
+    BasicBlock,
+    BatchNorm1d,
+    Conv2d,
+    ConvNormAct,
+    Mlp,
+    SELayer,
+    to_cf,
+    to_cl,
+)
 
 
 class ASPP(nn.Module):
-    """Atrous spatial pyramid pooling (dilations 1, 6, 12, 18 + global)."""
+    """Atrous spatial pyramid pooling (dilations 1, 6, 12, 18 + global),
+    then dropout at `dropout_rate` in training: the caller hands the
+    element mask in, already scaled by 1 / keep (`dropout_scale`)."""
+
+    dropout_rate = 0.5
 
     def __init__(self, inplanes: int, mid_channels: int = 256):
         super().__init__()
@@ -28,11 +41,12 @@ class ASPP(nn.Module):
         self.global_branch = ConvNormAct(inplanes, mid_channels, 1)
         self.proj = ConvNormAct(5 * mid_channels, inplanes, 1)
 
-    def forward(self, x):
+    def forward(self, x, dropout_scale=None):
         branches = [getattr(self, f"aspp{i}")(x) for i in range(1, 5)]
         gap = self.global_branch(x.mean(dim=(1, 2), keepdim=True))
         branches.append(gap.expand(*branches[0].shape[:-1], gap.shape[-1]))
-        return self.proj(torch.cat(branches, dim=-1))
+        y = self.proj(torch.cat(branches, dim=-1))
+        return y if dropout_scale is None else y * dropout_scale.to(y.dtype)
 
 
 def _stereo_coeffs(k2s_sensor, intrins, post_rots, post_trans):
@@ -163,12 +177,12 @@ class DepthNet(nn.Module):
                  aspp_mid_channels: int = 96, stereo: bool = True):
         super().__init__()
         self.stereo = stereo
-        self.mlp_bn = nn.BatchNorm1d(27, eps=1e-5)
+        self.mlp_bn = BatchNorm1d(27, eps=1e-5)
         self.reduce_conv = ConvNormAct(in_channels, mid_channels, 3,
                                        use_bias=True)
         self.context_mlp = Mlp(27, mid_channels, mid_channels)
         self.context_se = SELayer(mid_channels)
-        self.context_conv = nn.Conv2d(mid_channels, context_channels, 1)
+        self.context_conv = Conv2d(mid_channels, context_channels, 1)
         self.depth_mlp = Mlp(27, mid_channels, mid_channels)
         self.depth_se = SELayer(mid_channels)
         in_ch = mid_channels
@@ -184,9 +198,11 @@ class DepthNet(nn.Module):
         self.depth_block1 = BasicBlock(mid_channels, mid_channels)
         self.depth_block2 = BasicBlock(mid_channels, mid_channels)
         self.aspp = ASPP(mid_channels, aspp_mid_channels)
-        self.depth_pred = nn.Conv2d(mid_channels, depth_channels, 1)
+        self.depth_pred = Conv2d(mid_channels, depth_channels, 1)
 
-    def forward(self, x, mlp_input, cost_volume: Optional[torch.Tensor] = None):
+    def forward(self, x, mlp_input, cost_volume: Optional[torch.Tensor] = None,
+                dropout_scale: Optional[torch.Tensor] = None):
+        """dropout_scale: ASPP's dropout mask in training, else None."""
         mlp_input = self.mlp_bn(mlp_input.reshape(-1, mlp_input.shape[-1]))
         x = self.reduce_conv(x)
         context = self.context_se(x, self.context_mlp(mlp_input))
@@ -197,6 +213,6 @@ class DepthNet(nn.Module):
             cv = self.cost_volumn_net1(self.cost_volumn_net0(cv))
             depth = torch.cat([depth, cv], dim=-1)
         depth = self.depth_block2(self.depth_block1(self.depth_block0(depth)))
-        depth = self.aspp(depth)
+        depth = self.aspp(depth, dropout_scale)
         depth = to_cl(self.depth_pred(to_cf(depth)))
         return torch.cat([depth, context], dim=-1)

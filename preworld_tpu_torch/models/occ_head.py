@@ -8,7 +8,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from .layers import ConvNormAct, to_cf, to_cl
+from .layers import Conv3d, ConvNormAct, to_cf, to_cl
 
 
 class OccHead(nn.Module):
@@ -20,9 +20,9 @@ class OccHead(nn.Module):
         self.occ_conv = ConvNormAct(in_channels, mid, (3, 3, 3))
         if soft_weights:
             self.soft_w0 = ConvNormAct(mid, mid // 2, (1, 1, 1))
-            self.soft_w1 = nn.Conv3d(mid // 2, 1, 1, bias=False)
+            self.soft_w1 = Conv3d(mid // 2, 1, 1, bias=False)
         self.pred0 = ConvNormAct(mid, mid // 2, (1, 1, 1))
-        self.pred1 = nn.Conv3d(mid // 2, out_channel, 1, bias=False)
+        self.pred1 = Conv3d(mid // 2, out_channel, 1, bias=False)
 
     def forward(self, voxel_feats):
         """(B, X, Y, Z, C) -> logits (B, X, Y, Z, out_channel)."""

@@ -1,25 +1,40 @@
-"""PreWorld: the occupancy world model, inference slice.
+"""PreWorld: the occupancy world model, inference and finetune slices.
 
 Counterpart of `preworld_tpu/models/preworld.py`: `PreWorldConfig`,
 `TinyBackbone`, and `PreWorld.extract_voxel_feat` / `predict` /
-`predict_attributes` / `occupancy_logits` (the 3-frame stereo loop with
-`align_after_vt=False`). Streaming, `align_after_vt`, the losses and the
-render head are not ported yet.
+`predict_attributes` / `occupancy_logits` / `loss` (the 3-frame stereo loop
+with `align_after_vt=False`). `loss` covers the `if_post_finetune` branch
+(the four voxel losses); the render head and the LSS depth loss of the
+pretrain stage, streaming and `align_after_vt` are not ported yet.
 
 Batch layout (torch tensors on one device, channel-last):
   imgs (B, T, N, H, W, 3); sensor2egos, ego2globals (B, T, N, 4, 4);
-  intrins, post_rots (B, T, N, 3, 3); post_trans (B, T, N, 3); bda (B, 3, 3).
-The backbone, necks, view transformer and BEV encoder run in `cfg.dtype`;
-`final_conv` and the heads run in f32.
+  intrins, post_rots (B, T, N, 3, 3); post_trans (B, T, N, 3); bda (B, 3, 3);
+  voxel_semantics (B, X, Y, Z) int (training).
+Parameters are f32. The backbone, necks, view transformer and BEV encoder
+compute in `cfg.dtype` (weights cast at use, `models/layers.py`);
+`final_conv` and the heads compute in f32.
+
+Training (`train=True`): only the key frame carries gradients. The stereo
+reference frame and the adjacent frame run under `torch.no_grad()` (the JAX
+package's `stop_gradient`), their BatchNorms still on batch statistics and
+folding them in the JAX call order; the stereo cost volume is computed
+without gradient. Stochastic depth masks and the depth net's ASPP dropout
+masks come from the caller's `torch.Generator`, drawn on the host. With
+`cfg.remat`, `torch.utils.checkpoint` recomputes the image backbone, the
+view transformer and the two 3-D ResNets in the backward, the segments of
+the JAX package's `nn.remat`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..geometry.frustum import (
     GridConfig,
@@ -28,8 +43,16 @@ from ..geometry.frustum import (
     voxel_indices,
 )
 from ..geometry.transforms import curr2adjsensor_chain, sensor2keyego_chain
+from ..losses.voxel import (
+    ce_ssc_loss,
+    distance_weighted_focal_loss,
+    geo_scal_loss,
+    lovasz_softmax_loss,
+    sem_scal_loss,
+    voxel_class_weights,
+)
 from .fpn import FPN_LSS, LSSFPN3D
-from .layers import ConvNormAct, MlpSequence
+from .layers import ConvNormAct, MlpSequence, recompute_context
 from .occ_head import OccHead
 from .resnet import CustomResNet3D
 from .swin import SwinTransformer
@@ -44,8 +67,7 @@ from .view_transformer import (
 @dataclasses.dataclass(frozen=True)
 class PreWorldConfig:
     """The JAX package's `PreWorldConfig` fields and defaults, less the
-    training-only ones (loss weights, render head, remat); `dtype` is a
-    torch dtype."""
+    render head's `nerf` settings; `dtype` is a torch dtype."""
 
     grid: GridConfig = GridConfig()
     input_size: Tuple[int, int] = (512, 1408)
@@ -63,7 +85,21 @@ class PreWorldConfig:
     out_dim: int = 32
     test_threshold: float = 8.5
     empty_idx: int = 17
+    # stage switches and loss weights
+    if_pretrain: bool = False
+    if_render: bool = True
     if_post_finetune: bool = False
+    use_lss_depth_loss: bool = True
+    depth_loss_weight: float = 0.05
+    weight_voxel_ce: float = 1.0
+    weight_voxel_sem_scal: float = 1.0
+    weight_voxel_geo_scal: float = 1.0
+    weight_voxel_lovasz: float = 1.0
+    use_focal_loss: bool = True
+    balance_cls_weight: bool = True
+    # recompute the backbone / view transformer / 3-D ResNet activations in
+    # the backward instead of keeping them
+    remat: bool = False
     dtype: Any = torch.float32
 
     @property
@@ -135,25 +171,65 @@ class PreWorld(nn.Module):
         self.semantic_mlp = MlpSequence(c.out_dim, c.out_dim * 2,
                                         c.num_classes - 1)
         self.color_mlp = MlpSequence(c.out_dim, c.out_dim * 2, 3)
-        for m in (self.img_backbone, self.img_neck, self.view_transformer,
-                  self.pre_process, self.bev_backbone, self.bev_neck):
-            m.to(c.dtype)
 
-    def _encode_image(self, imgs):
+    def _segment(self, fn, *args, **kwargs):
+        """fn(*args, **kwargs), under `checkpoint` when `cfg.remat` and a
+        gradient is being recorded."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return fn(*args, **kwargs)
+        return checkpoint(
+            fn, *args, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), recompute_context()),
+            **kwargs)
+
+    def _backbone(self, x, stage0_only, generator):
+        """Image backbone on (B*N, H, W, 3), stochastic depth drawn from
+        `generator` (Swin, training)."""
+        if generator is None or self.cfg.backbone != "swin":
+            return self._segment(self.img_backbone, x, stage0_only)
+        drops = self.img_backbone.draw_drop_scales(x.shape[0], generator,
+                                                   stage0_only)
+        return self._segment(self.img_backbone, x, stage0_only, drops)
+
+    def _encode_image(self, imgs, generator=None):
         """(B, N, H, W, 3) -> ((B, N, hf, wf, C_neck), stereo feat)."""
         B, N = imgs.shape[:2]
-        feats = self.img_backbone(imgs.reshape(B * N, *imgs.shape[2:]))
+        feats = self._backbone(imgs.reshape(B * N, *imgs.shape[2:]), False,
+                               generator)
         neck = self.img_neck(feats[1:])
         return neck.reshape(B, N, *neck.shape[1:]), feats[0]
 
-    def extract_voxel_feat(self, batch: Dict[str, torch.Tensor]):
+    def _aspp_dropout(self, B, N, generator):
+        """The depth net's ASPP dropout mask, scaled by 1 / keep, drawn on
+        the host; None when not training or at rate 0."""
+        aspp = self.view_transformer.depth_net.aspp
+        if generator is None or aspp.dropout_rate == 0.0:
+            return None
+        c = self.cfg
+        keep = 1.0 - aspp.dropout_rate
+        shape = (B * N, c.input_size[0] // self.view_transformer.downsample,
+                 c.input_size[1] // self.view_transformer.downsample,
+                 c.neck_out_channels)
+        return (torch.rand(shape, generator=generator) < keep).float() / keep
+
+    def extract_voxel_feat(self, batch: Dict[str, torch.Tensor],
+                           train: bool = False,
+                           generator: Optional[torch.Generator] = None):
         """3-frame stereo loop + BEV encoder -> voxel feats (B, X, Y, Z,
-        out_dim) f32 and key-frame depth (B, N, D, hf, wf) f32."""
+        out_dim) f32 and key-frame depth (B, N, D, hf, wf) f32.
+
+        train: draw stochastic-depth and dropout masks from `generator` (a
+        host generator, required) and keep gradients for the key frame only.
+        BatchNorm follows the module's train / eval mode.
+        """
         c = self.cfg
         imgs = batch["imgs"].to(c.dtype)
         B, T, N = imgs.shape[:3]
         if T != c.num_frames:
             raise ValueError(f"expected {c.num_frames} frames, got {T}")
+        if train and generator is None:
+            raise ValueError("train=True needs a torch.Generator")
+        gen = generator if train else None
         check_planar_post_aug(batch["post_rots"])
         s2keyego = sensor2keyego_chain(batch["sensor2egos"],
                                        batch["ego2globals"])
@@ -167,26 +243,53 @@ class PreWorld(nn.Module):
             frame_imgs = imgs[:, fid]
             if fid >= c.temporal_frames:  # stereo-only reference frame
                 x = frame_imgs.reshape(B * N, *frame_imgs.shape[2:])
-                stereo_feat_prev = self.img_backbone(x, stage0_only=True)[0]
+                with torch.no_grad():
+                    stereo_feat_prev = self._backbone(x, True, gen)[0]
                 continue
-            cams = {
-                "sensor2keyego": s2keyego[:, fid],
-                "intrin": batch["intrins"][:, fid],
-                "post_rot": batch["post_rots"][:, fid],
-                "post_tran": batch["post_trans"][:, fid],
-                "bda": batch["bda"],
-                # the mlp input always takes the KEY frame pose
-                "mlp_input": get_mlp_input(
-                    s2keyego[:, 0], batch["ego2globals"][:, 0],
-                    batch["intrins"][:, fid], batch["post_rots"][:, fid],
-                    batch["post_trans"][:, fid], batch["bda"]),
-            }
-            feat, stereo_feat = self._encode_image(frame_imgs)
+            grads = contextlib.nullcontext() if fid == 0 else torch.no_grad()
+            with grads:
+                voxel, depth, stereo_feat = self._frame(
+                    batch, fid, frame_imgs, s2keyego, curr2adj,
+                    stereo_feat_prev, gen)
+            if fid == 0:
+                depth_key = depth
+            bev_feats.append(voxel)
+            stereo_feat_prev = stereo_feat
+        x = torch.cat(bev_feats, dim=-1)  # [adj, key]
+        x = self.bev_neck(self._segment(self.bev_backbone, x))
+        x = self.final_conv(x.float())
+        # (B, Z, Y, X, C) -> (B, X, Y, Z, C)
+        voxel_feats = x.permute(0, 3, 2, 1, 4)
+        return voxel_feats, depth_key.float()
+
+    def _frame(self, batch, fid, frame_imgs, s2keyego, curr2adj,
+               stereo_feat_prev, gen):
+        """One temporal frame: image encoder, stereo cost volume, view
+        transformer and pre-process net -> (voxel feat, depth, stage-0
+        stereo feat)."""
+        c = self.cfg
+        B, N = frame_imgs.shape[:2]
+        cams = {
+            "sensor2keyego": s2keyego[:, fid],
+            "intrin": batch["intrins"][:, fid],
+            "post_rot": batch["post_rots"][:, fid],
+            "post_tran": batch["post_trans"][:, fid],
+            "bda": batch["bda"],
+            # the mlp input always takes the KEY frame pose
+            "mlp_input": get_mlp_input(
+                s2keyego[:, 0], batch["ego2globals"][:, 0],
+                batch["intrins"][:, fid], batch["post_rots"][:, fid],
+                batch["post_trans"][:, fid], batch["bda"]),
+        }
+        feat, stereo_feat = self._encode_image(frame_imgs, gen)
+        stereo_feat = stereo_feat.detach()
+        with torch.no_grad():
             cost_volume = None
             if stereo_feat_prev is not None:
                 cost_volume = compute_stereo_cost_volume(
                     self.cv_frustum, cams,
-                    {"prev_feat": stereo_feat_prev, "curr_feat": stereo_feat,
+                    {"prev_feat": stereo_feat_prev,
+                     "curr_feat": stereo_feat,
                      "k2s_sensor": curr2adj[:, fid]},
                     c.input_size, self.view_transformer.cost_volume_bias)
             pool_vox = voxel_indices(
@@ -194,19 +297,13 @@ class PreWorld(nn.Module):
                                  cams["intrin"], cams["post_rot"],
                                  cams["post_tran"], cams["bda"]),
                 c.grid)
-            voxel, depth = self.view_transformer(feat, cams, cost_volume,
-                                                 pool_vox)
-            voxel = self.pre_process(voxel)[0]
-            if fid == 0:
-                depth_key = depth
-            bev_feats.append(voxel)
-            stereo_feat_prev = stereo_feat
-        x = torch.cat(bev_feats, dim=-1)  # [adj, key]
-        x = self.bev_neck(self.bev_backbone(x))
-        x = self.final_conv(x.float())
-        # (B, Z, Y, X, C) -> (B, X, Y, Z, C)
-        voxel_feats = x.permute(0, 3, 2, 1, 4)
-        return voxel_feats, depth_key.float()
+        drop = self._aspp_dropout(B, N, gen)
+        if drop is not None:
+            drop = drop.to(feat.device, non_blocking=True)
+        voxel, depth = self._segment(self.view_transformer, feat, cams,
+                                     cost_volume, pool_vox, drop)
+        voxel = self._segment(self.pre_process, voxel)[0]
+        return voxel, depth, stereo_feat
 
     def predict_attributes(self, voxel_feats):
         density = self.density_mlp(voxel_feats)[..., 0]
@@ -215,6 +312,37 @@ class PreWorld(nn.Module):
 
     def occupancy_logits(self, voxel_feats):
         return self.occupancy_head(voxel_feats)
+
+    def loss(self, batch: Dict[str, torch.Tensor],
+             generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Finetune-stage loss dict (`if_post_finetune`): focal (or CE),
+        semantic scal, geometric scal and Lovasz on the occupancy logits,
+        each times its weight. Call in train mode."""
+        c = self.cfg
+        if c.if_render or c.use_lss_depth_loss:
+            raise NotImplementedError(
+                "the render head and the LSS depth loss (pretrain stage) are "
+                "not ported: set if_render=False, use_lss_depth_loss=False")
+        voxel_feats, _ = self.extract_voxel_feat(batch, train=True,
+                                                 generator=generator)
+        losses: Dict[str, torch.Tensor] = {}
+        if c.if_post_finetune:
+            logits = self.occupancy_logits(voxel_feats)
+            target = batch["voxel_semantics"].long()
+            cls_w = torch.from_numpy(voxel_class_weights(
+                c.num_classes, c.balance_cls_weight)).to(logits.device)
+            if c.use_focal_loss:
+                ce = distance_weighted_focal_loss(logits, target, cls_w)
+            else:
+                ce = ce_ssc_loss(logits, target, cls_w)
+            losses["loss_voxel_ce"] = c.weight_voxel_ce * ce
+            losses["loss_voxel_sem"] = c.weight_voxel_sem_scal * \
+                sem_scal_loss(logits, target)
+            losses["loss_voxel_geo"] = c.weight_voxel_geo_scal * \
+                geo_scal_loss(logits, target, non_empty_idx=c.empty_idx)
+            losses["loss_voxel_lovasz"] = c.weight_voxel_lovasz * \
+                lovasz_softmax_loss(logits, target, ignore_index=c.empty_idx)
+        return losses
 
     @torch.no_grad()
     def predict(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

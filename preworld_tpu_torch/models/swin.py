@@ -8,6 +8,13 @@ their plain versions on CPU tensors), and the stage slices the real region
 once at its end. The window is clamped to min(window, H, W) and the shift
 is 0 when that window covers the whole feature map, as in the JAX package.
 PatchMerging uses the unfold channel order c*4 + kh*2 + kw.
+
+Stochastic depth in training: block k of the 24 drops its attention and
+its MLP branch per image with rate linspace(0, drop_path_rate, 24)[k], the
+kept branches scaled by 1 / keep (the K1 per-image and K2 per-row
+`row_scale`). `draw_drop_scales` draws the masks from an explicit
+`torch.Generator` on the host, so a checkpoint recompute and the CPU and
+card runs of one step see the same masks.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch.nn.functional as F
 
 from ..ops.swin_block_pallas import fused_swin_attn_block
 from ..ops.swin_mlp_pallas import fused_swin_mlp
+from .layers import Conv2d, LayerNorm, Linear
 
 
 def relative_position_index(ws: int) -> np.ndarray:
@@ -54,8 +62,8 @@ class WindowMSA(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int):
         super().__init__()
-        self.qkv = nn.Linear(dim, dim * 3)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Linear(dim, dim * 3)
+        self.proj = Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * window_size - 1) ** 2, num_heads))
         self.num_heads = num_heads
@@ -78,27 +86,32 @@ class SwinBlock(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift: int, mlp_ratio: int = 4):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = WindowMSA(dim, num_heads, window_size)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp_fc1 = nn.Linear(dim, dim * mlp_ratio)
-        self.mlp_fc2 = nn.Linear(dim * mlp_ratio, dim)
+        self.norm2 = LayerNorm(dim, eps=1e-5)
+        self.mlp_fc1 = Linear(dim, dim * mlp_ratio)
+        self.mlp_fc2 = Linear(dim * mlp_ratio, dim)
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift = shift
 
-    def forward(self, x, hw, region_ids):
+    def forward(self, x, hw, region_ids, drop=None):
         """x: padded (B, Hp, Wp, C); hw: the real (H, W); region_ids:
-        (nW, N) shift-region table of a shifted block, else None."""
+        (nW, N) shift-region table of a shifted block, else None; drop:
+        per-image (attention, MLP) branch scales (B,) of stochastic depth,
+        or None. The f32 weights go to the kernel wrappers as they are."""
         H, W = hw
         a = self.attn
+        rs1, rs2 = (None, None) if drop is None else drop
+        if rs2 is not None:
+            rs2 = rs2[:, None].expand(-1, x.shape[1] * x.shape[2]).reshape(-1)
         y = fused_swin_attn_block(
             x, self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
-            a.proj.weight, a.proj.bias, a.rel_bias(), region_ids, None,
+            a.proj.weight, a.proj.bias, a.rel_bias(), region_ids, rs1,
             self.num_heads, self.window_size, H, W, self.shift)
         return fused_swin_mlp(
             y, self.norm2.weight, self.norm2.bias, self.mlp_fc1.weight,
-            self.mlp_fc1.bias, self.mlp_fc2.weight, self.mlp_fc2.bias)
+            self.mlp_fc1.bias, self.mlp_fc2.weight, self.mlp_fc2.bias, rs2)
 
 
 class PatchMerging(nn.Module):
@@ -106,8 +119,8 @@ class PatchMerging(nn.Module):
 
     def __init__(self, dim: int, out_dim: int):
         super().__init__()
-        self.norm = nn.LayerNorm(4 * dim, eps=1e-5)
-        self.reduction = nn.Linear(4 * dim, out_dim, bias=False)
+        self.norm = LayerNorm(4 * dim, eps=1e-5)
+        self.reduction = Linear(4 * dim, out_dim, bias=False)
 
     def forward(self, x):
         """x: (B, H, W, C) -> ((B, H2, W2, out_dim), (H2, W2))."""
@@ -134,14 +147,16 @@ class SwinTransformer(nn.Module):
                  num_heads: Sequence[int] = (4, 8, 16, 32),
                  window_size: int = 12, mlp_ratio: int = 4,
                  patch_size: int = 4, out_indices: Sequence[int] = (2, 3),
+                 drop_path_rate: float = 0.1,
                  return_stereo_feat: bool = True, patch_norm: bool = True):
         super().__init__()
         self.depths = tuple(depths)
+        self.drop_path_rate = drop_path_rate
         self.out_indices = tuple(out_indices)
         self.return_stereo_feat = return_stereo_feat
-        self.patch_embed = nn.Conv2d(3, embed_dims, patch_size,
+        self.patch_embed = Conv2d(3, embed_dims, patch_size,
                                      stride=patch_size)
-        self.patch_norm = (nn.LayerNorm(embed_dims, eps=1e-5) if patch_norm
+        self.patch_norm = (LayerNorm(embed_dims, eps=1e-5) if patch_norm
                            else None)
         dim = embed_dims
         Hs, Ws = input_size[0] // patch_size, input_size[1] // patch_size
@@ -156,7 +171,7 @@ class SwinTransformer(nn.Module):
             if i < len(self.depths) - 1:
                 setattr(self, f"downsample{i}", PatchMerging(dim, dim * 2))
             if i in self.out_indices:
-                setattr(self, f"out_norm{i}", nn.LayerNorm(dim, eps=1e-5))
+                setattr(self, f"out_norm{i}", LayerNorm(dim, eps=1e-5))
             if i < len(self.depths) - 1:
                 dim *= 2
                 Hs, Ws = (Hs + 1) // 2, (Ws + 1) // 2
@@ -170,7 +185,28 @@ class SwinTransformer(nn.Module):
                 ids.astype(np.int32)).to(device)
         return self._region_cache[key]
 
-    def forward(self, x, stage0_only: bool = False) -> Tuple[torch.Tensor, ...]:
+    def draw_drop_scales(self, batch: int, generator: torch.Generator,
+                         stage0_only: bool = False):
+        """Per-block (attention, MLP) stochastic-depth scales (B,) f32 on
+        the host, drawn from `generator` block by block (attention first);
+        None for a block whose rate is 0."""
+        rates = np.linspace(0, self.drop_path_rate, sum(self.depths))
+        if stage0_only:
+            rates = rates[:self.depths[0]]
+        out = []
+        for rate in rates:
+            if rate == 0.0:
+                out.append(None)
+                continue
+            keep = 1.0 - float(rate)
+            out.append(tuple(
+                (torch.rand(batch, generator=generator) < keep).float() / keep
+                for _ in range(2)))
+        return out
+
+    def forward(self, x, stage0_only: bool = False,
+                drop_scales=None) -> Tuple[torch.Tensor, ...]:
+        """drop_scales: `draw_drop_scales` output (training), else None."""
         x = self.patch_embed(x.movedim(-1, 1)).movedim(1, -1)
         if self.patch_norm is not None:
             x = self.patch_norm(x)
@@ -189,7 +225,13 @@ class SwinTransformer(nn.Module):
                 blk = getattr(self, f"stage{i}_block{j}")
                 region = (self._region_ids(Hp, Wp, ws, blk.shift, x.device)
                           if blk.shift else None)
-                xs = blk(xs, (Hs, Ws), region)
+                drop = None
+                if drop_scales is not None:
+                    drop = drop_scales[sum(self.depths[:i]) + j]
+                    if drop is not None:
+                        drop = tuple(t.to(x.device, non_blocking=True)
+                                     for t in drop)
+                xs = blk(xs, (Hs, Ws), region, drop)
             out = xs[:, :Hs, :Ws]
             x = out
             if i < len(self.depths) - 1:

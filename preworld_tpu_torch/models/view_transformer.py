@@ -66,7 +66,10 @@ class LSSViewTransformer(nn.Module):
 
     forward(x (B, N, Hf, Wf, C_in), cams, cost_volume (B*N, D, Hc, Wc) or
     None for the zero-cost-volume branch, pool_vox (B, N, D, Hf, Wf) voxel
-    ids) -> voxel feats (B, Z, Y, X, C_out), depth (B, N, D, Hf, Wf).
+    ids, dropout_scale: the depth net's ASPP dropout mask (B*N, Hf, Wf,
+    C_in) in training) -> voxel feats (B, Z, Y, X, C_out), depth (B, N, D,
+    Hf, Wf). Differentiable in x and the parameters; the cost volume is an
+    input without gradient, as in the JAX package.
     """
 
     def __init__(self, grid: GridConfig, input_size: Tuple[int, int],
@@ -93,7 +96,7 @@ class LSSViewTransformer(nn.Module):
                 frustum_pixel_indices(B, N, self.D, Hf, Wf)).to(device)
         return self._pix[key]
 
-    def forward(self, x, cams, cost_volume, pool_vox):
+    def forward(self, x, cams, cost_volume, pool_vox, dropout_scale=None):
         B, N, Hf, Wf, C = x.shape
         x = x.reshape(B * N, Hf, Wf, C)
         if cost_volume is None:
@@ -101,7 +104,8 @@ class LSSViewTransformer(nn.Module):
             cw = self.input_size[1] // self.cv_downsample
             cost_volume = torch.zeros((B * N, self.D, ch, cw), dtype=x.dtype,
                                       device=x.device)
-        out = self.depth_net(x, cams["mlp_input"].to(x.dtype), cost_volume)
+        out = self.depth_net(x, cams["mlp_input"].to(x.dtype), cost_volume,
+                             dropout_scale)
         depth = torch.softmax(out[..., :self.D], dim=-1)
         feat = out[..., self.D:self.D + self.out_channels]
         depth_bnd = depth.reshape(B, N, Hf, Wf, self.D).permute(0, 1, 4, 2, 3)

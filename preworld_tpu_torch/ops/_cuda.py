@@ -7,7 +7,8 @@ ctypes. Nothing here runs at import time: the CPU tests import every module
 and never reach a kernel.
 
 `launches` counts, per kernel wrapper, the calls that launched the kernel
-(plain-version calls on CPU tensors are not counted).
+(plain-version calls on CPU tensors are not counted); a backward kernel
+chain counts under its own name (`*_bwd`).
 """
 
 from __future__ import annotations
@@ -28,11 +29,12 @@ BUILD_ROOT = PKG_DIR / "build"
 LIB_NAME = "libpreworld_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo",
 ]
+LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 KERNELS = ("fused_swin_attn_block", "fused_swin_mlp", "plane_sweep_cost_hom",
-           "bev_pool_fused")
+           "bev_pool_fused", "fused_swin_attn_block_bwd", "fused_swin_mlp_bwd")
 launches = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
@@ -43,7 +45,13 @@ _SIGNATURES = {
     "pw_swin_mlp": [_P] * 10 + [_I] * 3 + [_P],
     "pw_plane_sweep_cost_hom": [_P] * 4 + [_I] * 5 + [_F, _P],
     "pw_bev_pool_intervals": [_P] * 5 + [_I] * 2 + [_P],
+    "pw_swin_attn_block_bwd": [_P] * 23 + [_I] * 9 + [_F, _P],
+    "pw_swin_attn_block_bwd_part_elems": [_I] * 6,
+    "pw_swin_mlp_bwd": [_P] * 19 + [_I] * 3 + [_P],
+    "pw_swin_mlp_bwd_part_elems": [_I] * 3,
 }
+_RESTYPES = {"pw_swin_attn_block_bwd_part_elems": ctypes.c_longlong,
+             "pw_swin_mlp_bwd_part_elems": ctypes.c_longlong}
 
 _lib = None
 build_info: dict = {}
@@ -74,29 +82,47 @@ def build() -> Path:
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     lib_path = out_dir / LIB_NAME
     if lib_path.exists():
         build_info.update(path=str(lib_path), seconds=0.0, cached=True)
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / (LIB_NAME + f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
+    tag = f".tmp{os.getpid()}"
+    obj_dir = out_dir / ("obj" + tag)
+    obj_dir.mkdir(exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one nvcc per source, all at once, then one link
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = obj_dir / (src.stem + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    if not failed:
+        tmp = out_dir / (LIB_NAME + tag)
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *[str(o) for _, o, _ in jobs]]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(proc.stdout)
     seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}"
-        )
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed)[-8000:])
     tmp.replace(lib_path)
     build_info.update(path=str(lib_path), seconds=seconds, cached=False,
-                      log=proc.stderr)
+                      log="\n".join(log))
     return lib_path
 
 
@@ -108,7 +134,7 @@ def lib() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(handle, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = handle
     return _lib
 
@@ -138,13 +164,20 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape=None):
     return t
 
 
+def bf16(t: torch.Tensor, name: str, shape):
+    """A weight matrix as a contiguous bf16 CUDA tensor (cast at use, as
+    the forward and backward kernels read it)."""
+    return require(t.to(torch.bfloat16).contiguous(), name, torch.bfloat16,
+                   shape)
+
+
 def f32(t: torch.Tensor | None, name: str, numel: int):
     """A small parameter vector as a contiguous f32 CUDA tensor."""
     if t is None:
         return None
     if t.numel() != numel:
         raise ValueError(f"{name}: expected {numel} elements, got {t.numel()}")
-    return t.detach().reshape(-1).to(torch.float32).contiguous()
+    return t.reshape(-1).to(torch.float32).contiguous()
 
 
 def ptr(t: torch.Tensor | None):

@@ -1,3 +1,4 @@
-from .flax_bridge import flax_to_torch_state, load_flax_params
+from .config import Config
+from .flax_bridge import flax_to_torch_state, load_flax_params, torch_state
 
-__all__ = ["flax_to_torch_state", "load_flax_params"]
+__all__ = ["Config", "flax_to_torch_state", "load_flax_params", "torch_state"]

@@ -12,7 +12,11 @@ The port's module and parameter names mirror the flax tree, so a flax leaf
 
 This is the inverse direction of `preworld_tpu/utils/torch_port.py`; a
 reference mmcv checkpoint reaches the port as `convert_full_model` (which
-gives flax trees of numpy arrays) followed by `load_flax_params`.
+gives flax trees of numpy arrays) followed by `load_flax_params`. The port
+keeps its parameters and BatchNorm statistics in f32, so a loaded tree
+keeps every bit. `torch_state` is the reverse view, {torch name: array},
+the same keys `flax_to_torch_state` gives, so a stepped port compares with
+stepped flax trees (params, batch_stats, EMA) key by key.
 """
 
 from __future__ import annotations
@@ -87,3 +91,16 @@ def load_flax_params(model: torch.nn.Module, params: Mapping,
         for k, v in flat.items():
             state[k].copy_(torch.from_numpy(v))
     return sorted(flat)
+
+
+def torch_state(model: torch.nn.Module, params: Mapping = None
+                ) -> Dict[str, np.ndarray]:
+    """Flat {torch name: f32 array} of the model's parameters (or of
+    `params`, a {name: tensor} dict such as an EMA) and BatchNorm running
+    statistics; no step counters."""
+    tensors = dict(model.named_parameters()) if params is None else dict(params)
+    for name, buf in model.named_buffers():
+        if name.endswith(("running_mean", "running_var")):
+            tensors[name] = buf
+    return {k: v.detach().float().cpu().numpy().copy()
+            for k, v in tensors.items()}

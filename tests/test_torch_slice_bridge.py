@@ -37,14 +37,9 @@ SWIN = dict(backbone="swin", swin_embed_dims=16, swin_depths=(1, 1, 1, 1),
             swin_num_heads=(1, 2, 4, 8), swin_window=4)
 HEAD_FLAGS = dict(if_post_finetune=True, if_render=False,
                   use_lss_depth_loss=False)
-# JAX PreWorldConfig fields that only the training path reads (losses, the
-# render head, rematerialization); the port adds them with training
-TRAINING_FIELDS = {
-    "if_pretrain", "if_render", "use_lss_depth_loss", "depth_loss_weight",
-    "weight_voxel_ce", "weight_voxel_sem_scal", "weight_voxel_geo_scal",
-    "weight_voxel_lovasz", "use_focal_loss", "balance_cls_weight", "nerf",
-    "remat",
-}
+# JAX PreWorldConfig fields that only the pretrain stage's render head
+# reads; the port adds them with that stage
+TRAINING_FIELDS = {"nerf"}
 
 
 def _heads(m, b):
@@ -195,4 +190,4 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 29
