@@ -10,7 +10,8 @@ fallback to the CPU or to a kernel's plain version:
   build      nvcc builds the hand-written kernels (preworld_tpu_torch/csrc/)
              for sm_90a into preworld_tpu_torch/build/.
   kernel K*  each kernel against its plain PyTorch version on the card, at
-             the flagship shapes, within the stated tolerance; both timed.
+             the flagship shapes (K3 also at 256 channels), within the
+             stated tolerance; both timed.
   reference  a small config (flagship widths, 2 Swin blocks per stage,
              128x352 input, 2 cameras, 20x20x8 grid) runs on the card in
              bf16 through the kernels and on the CPU in f32 through the plain
@@ -21,9 +22,10 @@ fallback to the CPU or to a kernel's plain version:
              and encoder in bf16, heads in f32) answers 3 requests; every
              kernel must have run on that path.
   kernel K1b/K2b  the backward kernel chains against their plain backward
-             (autograd through the plain forward) at every Swin-B stage,
-             B = 6, within BWD_REL_L2 per gradient, and bit-identical over
-             two runs; both timed.
+             (autograd through the plain forward) at every Swin-B stage
+             and at Swin-T's block-route stages (C 384, 768), B = 6, within
+             BWD_REL_L2 per gradient, and bit-identical over two runs; both
+             timed.
   train-reference  the small config's finetune train step on the card (bf16,
              kernels) against the CPU (f32, plain): same weights, batch and
              drop-path / dropout masks; each loss, the gradient norm and the
@@ -33,11 +35,34 @@ fallback to the CPU or to a kernel's plain version:
              losses, a nonzero gradient on every parameter the key frame
              reaches, the EMA moved, 24 K1b and 24 K2b launches per step;
              step time, peak memory and a profiler breakdown of one more step.
+  kernel K5/K6  K5 (packed windows) at Swin-T stages 0-1 and K6 (image
+             layout) at every Swin-B stage, W-MSA and SW-MSA, B = 6, against
+             their plain versions; kernel, plain and
+             F.scaled_dot_product_attention times (the last a yardstick on
+             the same q, k, v and bias + mask, never on the port's path).
+  kernel K5b/K6b  their backward kernels at the same shapes: rel-L2 per
+             gradient within BWD_REL_L2, bit-identical over two runs; timed
+             like the forward (SDPA forward + backward as the yardstick).
+  swin-routes  Swin-B with `use_block_attn=False` (every stage per block on
+             K6, K2 and their backward kernels) forward and backward on 6
+             images at 512x1408, against the block route (K1, K2, K1b, K2b)
+             with the same weights: outputs and gradients within
+             ROUTES_REL_L2, launch counts.
+  swint-reference  the reference config at Swin-T widths (K5 at stages
+             0-1, the block kernels at stages 2-3, the grid-route cost
+             volume), card (bf16) against CPU (f32): logit rel-L2 <= 0.05.
+  swint-flagship  the finetune config's model at Swin-T widths (embed 96,
+             depths 2/2/6/2, heads 3/6/12/24, window 12): 3 predict requests
+             and 3 finetune steps, finite losses, the launch counts of
+             SWINT_PER_REQUEST / SWINT_PER_STEP, ms per request and step,
+             peak bytes, a profiler breakdown of one more request.
 
 Then one JSON line of per-kernel results (launches: K1-K4 from the flagship
-predict run, K1b/K2b from the train-flagship run), and last the device line
-{"ok": true, "device": {...}}. TF32 is off for both matmuls and cuDNN
-convolutions, so every f32 product is full f32.
+predict run, K1b/K2b from the train-flagship run, K5/K5b from the
+swint-flagship request and step, K6/K6b from the swin-routes run; each
+kernel's bound from the bytes and operations of its checked shapes), and
+last the device line {"ok": true, "device": {...}}. TF32 is off for both
+matmuls and cuDNN convolutions, so every f32 product is full f32.
 """
 
 from __future__ import annotations
@@ -73,8 +98,21 @@ KERNELS = {
     "fused_swin_mlp_bwd": (
         "K2b", "preworld_tpu_torch/csrc/swin_mlp_bwd.cu",
         "preworld_tpu/ops/swin_mlp_pallas.py:237"),
+    "fused_window_attention": (
+        "K5", "preworld_tpu_torch/csrc/window_attn.cu",
+        "preworld_tpu/ops/window_attn_pallas.py:86"),
+    "band_window_attention": (
+        "K6", "preworld_tpu_torch/csrc/window_attn.cu",
+        "preworld_tpu/ops/window_attn_pallas.py:391"),
+    "fused_window_attention_bwd": (
+        "K5b", "preworld_tpu_torch/csrc/window_attn_bwd.cu",
+        "preworld_tpu/ops/window_attn_pallas.py:234"),
+    "band_window_attention_bwd": (
+        "K6b", "preworld_tpu_torch/csrc/window_attn_bwd.cu",
+        "preworld_tpu/ops/window_attn_pallas.py:538"),
 }
-BWD_KERNELS = ("fused_swin_attn_block_bwd", "fused_swin_mlp_bwd")
+BWD_KERNELS = ("fused_swin_attn_block_bwd", "fused_swin_mlp_bwd",
+               "fused_window_attention_bwd", "band_window_attention_bwd")
 # kernel vs plain version, both on the card: pass iff
 # |kernel - plain| <= atol + rtol * |plain| everywhere. K1/K2 write bf16
 # (1 ulp = 2^-8 relative) after bf16-rounded intermediates (LN output, qkv,
@@ -82,19 +120,30 @@ BWD_KERNELS = ("fused_swin_attn_block_bwd", "fused_swin_mlp_bwd")
 # differ in order; K3 takes the same sample positions and weights in the
 # same f32 operations, only the channel sum's order differs; K4 sums f32 in
 # another order and rounds once to bf16.
+# K5/K6 write bf16 averages of v after bf16-rounded probabilities, which
+# can round the other way when the f32 score sums differ in order: a few
+# ulps (2^-8 relative each) of an output whose typical magnitude here
+# (N(0, 1) qkv) is 0.1-1. The largest errors read on the card, 0.0078 (K5)
+# and 0.0156 (K6), each lay within 0.01 + 0.02 |plain|.
 TOL = {
     "fused_swin_attn_block": (0.05, 0.02),
     "fused_swin_mlp": (0.05, 0.02),
     "plane_sweep_cost_hom": (1e-3, 1e-5),
     "bev_pool_fused": (1e-3, 1e-2),
+    "fused_window_attention": (0.01, 0.02),
+    "band_window_attention": (0.01, 0.02),
 }
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W): device
+# memory bytes/s, bf16 tensor-core and f32 (outside the tensor cores) FLOP/s
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 # per predict request: 2 temporal frames x 24 Swin blocks, plus the 2
 # stage-0 blocks of the stereo-reference frame; one cost volume and one
 # voxel pooling per temporal frame
-EXPECTED_PER_REQUEST = {"fused_swin_attn_block": 50, "fused_swin_mlp": 50,
-                        "plane_sweep_cost_hom": 2, "bev_pool_fused": 2,
-                        "fused_swin_attn_block_bwd": 0,
-                        "fused_swin_mlp_bwd": 0}
+EXPECTED_PER_REQUEST = dict.fromkeys(KERNELS, 0)
+EXPECTED_PER_REQUEST.update(fused_swin_attn_block=50, fused_swin_mlp=50,
+                            plane_sweep_cost_hom=2, bev_pool_fused=2)
 # Swin-B stages at 512x1408, 6 images: (C, heads, Hp, Wp, H, W), ws 12
 SWIN_STAGES = [(128, 4, 132, 360, 128, 352), (256, 8, 72, 180, 64, 176),
                (512, 16, 36, 96, 32, 88), (1024, 32, 24, 48, 16, 44)]
@@ -128,6 +177,35 @@ EXPECTED_PER_STEP_REMAT = dict(EXPECTED_PER_STEP, fused_swin_attn_block=74,
 TRAIN_TOL = {"loss_rel": 0.01, "grad_norm_rel": 0.1}
 COS_MARGIN = 0.15
 TRAIN_STEPS = 3
+# Swin-T widths (Liu et al. 2021) at PreWorld's window 12 and 512x1408:
+# stages (C, heads, Hp, Wp) of 6 images; C 96 and 192 run per block on K5,
+# 384 and 768 on the block kernels
+SWINT = dict(embed_dims=96, depths=(2, 2, 6, 2), num_heads=(3, 6, 12, 24),
+             window_size=12)
+SWINT_STAGES = [(96, 3, 132, 360), (192, 6, 72, 180)]
+# its block-route stages, as SWIN_STAGES: (C, heads, Hp, Wp, H, W)
+SWINT_BLOCK_STAGES = [(384, 12, 36, 96, 32, 88), (768, 24, 24, 48, 16, 44)]
+# per swint-flagship request: 2 temporal frames x (4 K5 blocks + 8 block-
+# route blocks), plus the stereo-reference frame's 2 stage-0 K5 blocks;
+# the 96-channel stereo feature takes the grid-route cost volume (no K3)
+SWINT_PER_REQUEST = dict.fromkeys(KERNELS, 0)
+SWINT_PER_REQUEST.update(fused_window_attention=10, fused_swin_attn_block=16,
+                         fused_swin_mlp=16, bev_pool_fused=2)
+# per step: the key frame's 4 K5 and 8 block-route blocks backward
+SWINT_PER_STEP = dict(SWINT_PER_REQUEST, fused_window_attention_bwd=4,
+                      fused_swin_attn_block_bwd=8, fused_swin_mlp_bwd=8)
+# swin-routes: Swin-B with the block kernel off, forward + backward
+ROUTES_LAUNCHES = dict.fromkeys(KERNELS, 0)
+ROUTES_LAUNCHES.update(band_window_attention=24, fused_swin_mlp=24,
+                       band_window_attention_bwd=24, fused_swin_mlp_bwd=24)
+# the band route rounds to bf16 where torch's ops do (LN output, qkv, the
+# proj output before the residual); the block route where K1 / K2 do:
+# outputs and the whole gradient within this rel-L2 of each other, and
+# every parameter's gradient within ROUTES_TENSOR_REL_L2 (a tensor of a few
+# hundred elements, such as a norm bias, reads the same rounding noise
+# against a smaller norm)
+ROUTES_REL_L2 = 0.03
+ROUTES_TENSOR_REL_L2 = 0.1
 # parameters the finetune loss never reaches (the render MLPs) or reaches
 # with an exactly zero gradient (the occupancy head's soft weights: a
 # softmax over one channel is 1)
@@ -174,6 +252,23 @@ def randn(gen, shape, scale=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
 
 
+def work(bytes_: float, flops: float, peak: float = BF16_FLOPS) -> dict:
+    """The bytes a call must move (each input read once, each output
+    written once) and the operations it does, at the peak rate of their
+    type: what its bound (`bound_ms`) is computed from."""
+    return {"bytes": float(bytes_), "flops": float(flops), "peak": peak}
+
+
+def bound(rows) -> tuple:
+    """(bound ms, "bytes" or "operations") of a kernel over its checked
+    shapes: each shape's larger time of bytes over the memory rate and
+    operations over the peak rate, summed."""
+    mem = [r["bytes"] / HBM_BYTES_S * 1e3 for r in rows]
+    ops = [r["flops"] / r["peak"] * 1e3 for r in rows]
+    total = sum(max(m, o) for m, o in zip(mem, ops))
+    return total, "bytes" if sum(mem) >= sum(ops) else "operations"
+
+
 # ----------------------------------------------------------------- kernels
 
 def check_swin(gen):
@@ -218,6 +313,9 @@ def check_swin(gen):
             r["ms"] = cuda_ms(lambda: k1.fused_swin_attn_block(*args))
             r["plain_ms"] = cuda_ms(lambda: k1.fused_swin_attn_block_plain(*args))
             r["shape"] = f"B{B} {Hp}x{Wp}x{C} h{heads} shift{shift}"
+            M = B * Hp * Wp
+            r.update(work(4 * M * C + 8 * C * C + heads * N * N * 4,
+                          8 * M * C * C + 4 * M * N * C))
             rows["fused_swin_attn_block"].append(r)
         w1 = randn(gen, (4 * C, C), C ** -0.5, bf)
         b1 = randn(gen, (4 * C,), 0.1)
@@ -229,6 +327,8 @@ def check_swin(gen):
         r["ms"] = cuda_ms(lambda: k2.fused_swin_mlp(*args))
         r["plain_ms"] = cuda_ms(lambda: k2.fused_swin_mlp_plain(*args))
         r["shape"] = f"M{B * Hp * Wp} C{C} hidden{4 * C}"
+        r.update(work(4 * B * Hp * Wp * C + 16 * C * C,
+                      16 * B * Hp * Wp * C * C))
         rows["fused_swin_mlp"].append(r)
     return rows
 
@@ -264,7 +364,8 @@ def check_backward(name, names, bwd, plain, args) -> dict:
 def check_swin_bwd(gen):
     """K1b and K2b at one W-MSA and one SW-MSA block (K1b) and one block
     (K2b) of every Swin-B stage, B = 6, cotangent N(0, 1), row scale with
-    one zero and one 1/0.9."""
+    one zero and one 1/0.9; then the same at Swin-T's block-route stages
+    (rows marked `extra`: checked, left out of the per-kernel sums)."""
     from preworld_tpu_torch.models.swin import (
         relative_position_index,
         shifted_window_region_ids,
@@ -279,7 +380,9 @@ def check_swin_bwd(gen):
     rs = torch.ones(B, device="cuda")
     rs[0], rs[1] = 0.0, 1.0 / 0.9
     rows = {"fused_swin_attn_block_bwd": [], "fused_swin_mlp_bwd": []}
-    for C, heads, Hp, Wp, H, W in SWIN_STAGES:
+    stages = [s + (False,) for s in SWIN_STAGES]
+    stages += [s + (True,) for s in SWINT_BLOCK_STAGES]
+    for C, heads, Hp, Wp, H, W, extra in stages:
         x = randn(gen, (B, Hp, Wp, C))
         garbage = 37.0 + randn(gen, (B, Hp, Wp, C), 10.0)
         x[:, H:] = garbage[:, H:]
@@ -308,6 +411,12 @@ def check_swin_bwd(gen):
                 k1.fused_swin_attn_block_bwd,
                 k1.fused_swin_attn_block_bwd_plain, args)
             r["shape"] = f"B{B} {Hp}x{Wp}x{C} h{heads} shift{shift}"
+            # recompute qkv (6MC^2) and S, O (4MNC); dWproj, dO (4MC^2),
+            # dV, dP, dQ, dK (8MNC), dWqkv, dLN (12MC^2)
+            M = B * Hp * Wp
+            r.update(work(6 * M * C + 8 * C * C + 16 * C * C
+                          + 2 * heads * N * N * 4,
+                          22 * M * C * C + 12 * M * N * C), extra=extra)
             rows["fused_swin_attn_block_bwd"].append(r)
         w1 = randn(gen, (4 * C, C), C ** -0.5, bf)
         b1 = randn(gen, (4 * C,), 0.1)
@@ -319,7 +428,142 @@ def check_swin_bwd(gen):
             "fused_swin_mlp_bwd", ("x", "ln_w", "ln_b", "w1", "b1", "w2", "b2"),
             k2.fused_swin_mlp_bwd, k2.fused_swin_mlp_bwd_plain, args)
         r["shape"] = f"M{B * Hp * Wp} C{C} hidden{4 * C}"
+        # recompute fc1; dW2, dh, dW1, dx: five products of 8MC^2
+        M = B * Hp * Wp
+        r.update(work(6 * M * C + 16 * C * C + 32 * C * C, 40 * M * C * C),
+                 extra=extra)
         rows["fused_swin_mlp_bwd"].append(r)
+    return rows
+
+
+def window_attn_cases(gen):
+    """K5 / K6 inputs at their main-path shapes, B = 6: K5 on the packed
+    windows of Swin-T stages 0-1, K6 on the image layout of every Swin-B
+    stage; W-MSA and SW-MSA each. Yields (launch-counter key, qkv, bias,
+    mask, heads, ws, shape label)."""
+    from preworld_tpu_torch.models.swin import (
+        relative_position_index,
+        shifted_window_mask,
+        window_partition,
+    )
+
+    bf = torch.bfloat16
+    ws, B = 12, 6
+    N = ws * ws
+    rel_idx = torch.from_numpy(relative_position_index(ws).reshape(-1)).cuda()
+    cases = [("fused_window_attention", C, h, Hp, Wp)
+             for C, h, Hp, Wp in SWINT_STAGES]
+    cases += [("band_window_attention", C, h, Hp, Wp)
+              for C, h, Hp, Wp, _, _ in SWIN_STAGES]
+    for name, C, heads, Hp, Wp in cases:
+        table = randn(gen, ((2 * ws - 1) ** 2, heads), 0.5)
+        bias = table[rel_idx].reshape(N, N, heads).permute(2, 0, 1)
+        bias = bias.contiguous()
+        qkv = randn(gen, (B, Hp, Wp, 3 * C), 1.0, bf)
+        if name == "fused_window_attention":
+            qkv = window_partition(qkv, ws).contiguous()
+        for shift in (0, ws // 2):
+            mask = (shifted_window_mask(Hp, Wp, ws, shift, "cuda")
+                    if shift else None)
+            yield (name, qkv, bias, mask, heads, ws,
+                   f"qkv {tuple(qkv.shape)} h{heads} shift{shift}")
+
+
+def _sdpa_inputs(qkv, bias, mask, heads, ws):
+    """q, k, v (Bw, heads, N, 32) and the additive bias + mask (Bw, heads,
+    N, N) in bf16, for the library yardstick."""
+    from preworld_tpu_torch.models.swin import window_partition
+
+    wins = window_partition(qkv, ws) if qkv.dim() == 4 else qkv
+    Bw, N, C3 = wins.shape
+    q, k, v = (t.contiguous() for t in
+               wins.reshape(Bw, N, 3, heads, C3 // 3 // heads)
+               .permute(2, 0, 3, 1, 4))
+    m = bias.float()[None].expand(Bw, -1, -1, -1)
+    if mask is not None:
+        m = m + mask[torch.arange(Bw, device=qkv.device) % mask.shape[0]][:, None]
+    return q, k, v, m.to(qkv.dtype).contiguous()
+
+
+def _attn_work(qkv, heads, mask, ws, backward):
+    """Bytes and bf16 tensor-core operations of one K5 / K6 call (forward:
+    qkv in, o out, 4 M N C; backward: qkv and dO in, dqkv out, S, dV, dP,
+    dQ, dK at 10 M N C), M tokens of C channels in windows of N."""
+    N = ws * ws
+    C = qkv.shape[-1] // 3
+    M = qkv.numel() // (3 * C)
+    small = heads * N * N * 4 + (0 if mask is None else mask.numel() * 4)
+    if backward:
+        return work(2 * (3 * M * C + M * C + 3 * M * C) + small
+                    + heads * N * N * 4, 10 * M * N * C)
+    return work(2 * (3 * M * C + M * C) + small, 4 * M * N * C)
+
+
+def check_window_attn(gen):
+    """K5 and K6 against their plain versions, with the SDPA yardstick."""
+    import torch.nn.functional as F
+
+    from preworld_tpu_torch.ops import window_attn_pallas as wa
+
+    fns = {"fused_window_attention": (
+               lambda q, b, m, h, ws: wa.fused_window_attention(q, b, m, h),
+               lambda q, b, m, h, ws: wa.fused_window_attention_plain(
+                   q, b, m, h)),
+           "band_window_attention": (wa.band_window_attention,
+                                     wa.band_window_attention_plain)}
+    rows = {k: [] for k in fns}
+    for name, qkv, bias, mask, heads, ws, shape in window_attn_cases(gen):
+        kern, plain = fns[name]
+        args = (qkv, bias, mask, heads, ws)
+        r = compare(name, kern(*args), plain(*args))
+        r["ms"] = cuda_ms(lambda: kern(*args))
+        r["plain_ms"] = cuda_ms(lambda: plain(*args))
+        q, k, v, am = _sdpa_inputs(*args)
+        r["library_ms"] = cuda_ms(
+            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=am))
+        r["shape"] = shape
+        r.update(_attn_work(qkv, heads, mask, ws, False))
+        rows[name].append(r)
+        del q, k, v, am
+    return rows
+
+
+def check_window_attn_bwd(gen):
+    """K5b and K6b against their plain backward, two runs bit-identical,
+    with SDPA's forward + backward as the yardstick."""
+    import torch.nn.functional as F
+
+    from preworld_tpu_torch.ops import window_attn_pallas as wa
+
+    fns = {"fused_window_attention_bwd": (
+               lambda q, b, m, d, h, ws: wa.fused_window_attention_bwd(
+                   q, b, m, d, h),
+               lambda q, b, m, d, h, ws: wa.fused_window_attention_bwd_plain(
+                   q, b, m, d, h)),
+           "band_window_attention_bwd": (wa.band_window_attention_bwd,
+                                         wa.band_window_attention_bwd_plain)}
+    rows = {k: [] for k in fns}
+    for name, qkv, bias, mask, heads, ws, shape in window_attn_cases(gen):
+        name = name + "_bwd"
+        kern, plain = fns[name]
+        dout = randn(gen, qkv.shape[:-1] + (qkv.shape[-1] // 3,), 1.0,
+                     qkv.dtype)
+        args = (qkv, bias, mask, dout, heads, ws)
+        r = check_backward(name, ("qkv", "bias"), kern, plain, args)
+        q, k, v, am = _sdpa_inputs(qkv, bias, mask, heads, ws)
+        for t in (q, k, v):
+            t.requires_grad_(True)
+        do = torch.randn_like(q)
+
+        def sdpa_fwd_bwd():
+            out = F.scaled_dot_product_attention(q, k, v, attn_mask=am)
+            torch.autograd.grad(out, (q, k, v), do)
+
+        r["library_ms"] = cuda_ms(sdpa_fwd_bwd)
+        r["shape"] = shape
+        r.update(_attn_work(qkv, heads, mask, ws, True))
+        rows[name].append(r)
+        del q, k, v, am, do
     return rows
 
 
@@ -340,6 +584,9 @@ def flagship_geometry(cfg, device):
 
 
 def check_cost_volume(gen, cfg):
+    """K3 at the flagship's 128 stereo channels, and at 256 (a width the
+    route also sends to K3; marked `extra`: checked, left out of the
+    per-kernel sums)."""
     from preworld_tpu_torch.geometry import create_frustum
     from preworld_tpu_torch.models.depthnet import gen_stereo_homography
     from preworld_tpu_torch.ops import cost_volume_pallas as k3
@@ -351,17 +598,27 @@ def check_cost_volume(gen, cfg):
         b["post_trans"][:, 0], cfg.input_size).contiguous()
     BN = cfg.num_cams
     Hc, Wc = cfg.input_size[0] // 4, cfg.input_size[1] // 4
-    prev = randn(gen, (BN, Hc, Wc, 128), 1.0, torch.bfloat16)
-    curr = randn(gen, (BN, Hc, Wc, 128), 1.0, torch.bfloat16)
-    args = (prev, curr, hom, 5.0)
-    got = k3.plane_sweep_cost_hom(*args)
-    r = compare("plane_sweep_cost_hom", got,
-                k3.plane_sweep_cost_hom_plain(*args))
-    r["ms"] = cuda_ms(lambda: k3.plane_sweep_cost_hom(*args))
-    r["plain_ms"] = cuda_ms(lambda: k3.plane_sweep_cost_hom_plain(*args))
-    r["shape"] = f"BN{BN} D{hom.shape[1]} {Hc}x{Wc}x128"
-    r["empty_sample_share"] = float((got > 5.0 - 1e-6).float().mean())
-    return r
+    D = hom.shape[1]
+    rows = []
+    for C in (128, 256):
+        prev = randn(gen, (BN, Hc, Wc, C), 1.0, torch.bfloat16)
+        curr = randn(gen, (BN, Hc, Wc, C), 1.0, torch.bfloat16)
+        args = (prev, curr, hom, 5.0)
+        got = k3.plane_sweep_cost_hom(*args)
+        r = compare("plane_sweep_cost_hom", got,
+                    k3.plane_sweep_cost_hom_plain(*args))
+        r["ms"] = cuda_ms(lambda: k3.plane_sweep_cost_hom(*args))
+        r["plain_ms"] = cuda_ms(lambda: k3.plane_sweep_cost_hom_plain(*args))
+        r["shape"] = f"BN{BN} D{D} {Hc}x{Wc}x{C}"
+        # per output: a bilinear sample (4 FMA per channel), |curr - s|
+        # summed
+        r.update(work(2 * BN * Hc * Wc * C * 2 + hom.numel() * 4
+                      + BN * D * Hc * Wc * 4, 11 * BN * D * Hc * Wc * C,
+                      F32_FLOPS), extra=C != 128)
+        r["empty_sample_share"] = float((got > 5.0 - 1e-6).float().mean())
+        rows.append(r)
+        del prev, curr, got
+    return rows
 
 
 def check_bev_pool(gen, cfg):
@@ -392,6 +649,11 @@ def check_bev_pool(gen, cfg):
     r["plain_ms"] = cuda_ms(lambda: bev_pool(*args))
     r["shape"] = f"P{vox.numel()} C{feat.shape[-1]} V{nv}"
     r["points_in_grid"] = int((vox < nv).sum())
+    C = feat.shape[-1]
+    # one multiply-add per channel of each point inside the grid
+    r.update(work(2 * (depth.numel() + feat.numel()) + 4 * vox.numel()
+                  + 4 * pix.numel() + 2 * nv * C,
+                  2 * r["points_in_grid"] * C, F32_FLOPS))
     return r
 
 
@@ -447,13 +709,18 @@ def reference_config(**over):
     return PreWorldConfig(**dict(kw, **over))
 
 
-def check_reference():
-    """Small config: card (bf16, kernels) against CPU (f32, plain)."""
+def check_reference(routes=None, **over):
+    """Small config (with `over`): card (bf16, kernels) against CPU (f32,
+    plain); `routes`, when given, the Swin stage routes it must take."""
     from preworld_tpu_torch.data import synthetic_batch, to_device
     from preworld_tpu_torch.models import PreWorld
 
-    cfg = reference_config()
+    cfg = reference_config(**over)
     ref = PreWorld(cfg).eval()
+    if routes is not None and ref.img_backbone.stage_routes != routes:
+        raise AssertionError(f"reference: routes "
+                             f"{ref.img_backbone.stage_routes}, expected "
+                             f"{routes}")
     init_weights(ref, seed=1, fan_in=True)
     card = PreWorld(dataclasses.replace(cfg, dtype=torch.bfloat16)).eval()
     card.load_state_dict(ref.state_dict())
@@ -719,6 +986,162 @@ def run_train_flagship():
     }
 
 
+def grad_rel_l2(got: dict, want: dict) -> tuple:
+    """(whole-gradient rel-L2, {name: rel-L2}) of two gradient dicts."""
+    per = {n: float((got[n] - w).norm() / w.norm().clamp_min(1e-30))
+           for n, w in want.items()}
+    num = math.sqrt(sum(float((got[n] - w).pow(2).sum())
+                        for n, w in want.items()))
+    den = math.sqrt(sum(float(w.pow(2).sum()) for w in want.values()))
+    return num / den, per
+
+
+def run_swin_routes():
+    """Path (b): Swin-B with the block kernel off (every stage per block on
+    K6, K2, K6b, K2b) against the block route, forward + backward on 6
+    images at 512x1408 with the same weights and cotangents."""
+    from preworld_tpu_torch.models import PreWorldConfig
+    from preworld_tpu_torch.models.swin import SwinTransformer
+    from preworld_tpu_torch.ops import _cuda
+
+    size = PreWorldConfig().input_size
+    block = SwinTransformer(size)
+    init_weights(block, seed=3, fan_in=True)
+    band = SwinTransformer(size, use_block_attn=False)
+    band.load_state_dict(block.state_dict())
+    if band.stage_routes != [("band", True)] * 4:
+        raise AssertionError(f"swin-routes: routes {band.stage_routes}")
+    block.cuda()
+    band.cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = randn(gen, (6,) + tuple(size) + (3,), 1.0, torch.bfloat16)
+    cts = []
+
+    def run(model):
+        model.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        outs = model(x)
+        if not cts:
+            cts.extend(randn(gen, o.shape) for o in outs)
+        loss = sum((o.float() * c).sum() for o, c in zip(outs, cts))
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_cuda.launches)
+        grads = {n: p.grad.float() for n, p in model.named_parameters()}
+        return [o.detach().float() for o in outs], grads, launches, ms
+
+    want, gw, _, _ = run(block)
+    got, gg, launches, _ = run(band)
+    if launches != ROUTES_LAUNCHES:
+        raise AssertionError(f"swin-routes: launches {launches}, expected "
+                             f"{ROUTES_LAUNCHES}")
+    # timed in turns after the first run of each
+    ms_band, ms_block = run(band)[3], run(block)[3]
+    out_rel = [float((g - w).norm() / w.norm()) for g, w in zip(got, want)]
+    for o in got:
+        if not torch.isfinite(o).all():
+            raise AssertionError("swin-routes: non-finite output")
+    whole, per = grad_rel_l2(gg, gw)
+    worst = sorted(per, key=per.get, reverse=True)[:5]
+    res = {"output_rel_l2": out_rel, "grad_rel_l2": whole,
+           "worst_tensors": {n: per[n] for n in worst},
+           "tensors": len(per), "launches": launches,
+           "fwd_bwd_ms": {"band": ms_band, "block": ms_block}}
+    if (max(out_rel) > ROUTES_REL_L2 or whole > ROUTES_REL_L2
+            or per[worst[0]] > ROUTES_TENSOR_REL_L2):
+        raise AssertionError(f"swin-routes: band vs block route {res}")
+    return res
+
+
+def run_swint_flagship():
+    """Path (a): the finetune config's model at Swin-T widths, remat off:
+    3 predict requests, one more profiled, then 3 finetune steps."""
+    from preworld_tpu_torch.data import synthetic_batch, to_device
+    from preworld_tpu_torch.ops import _cuda
+    from preworld_tpu_torch.train import (
+        build_model,
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from preworld_tpu_torch.utils import Config
+
+    conf = Config.fromfile("configs/preworld/preworld_7frame_finetune.py")
+    conf["model"]["swin"] = dict(SWINT)
+    model = build_model(conf)
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, remat=False)
+    routes = model.img_backbone.stage_routes
+    if (routes != [("window", False)] * 2 + [("block", True)] * 2
+            or model.stereo_on_plane_sweep):
+        raise AssertionError(f"swint-flagship: routes {routes}, K3 "
+                             f"{model.stereo_on_plane_sweep}")
+    init_weights(model, seed=0, fan_in=True)
+    model.cuda()
+    sx, sy, sz = (int(v) for v in cfg.grid.size)
+
+    def timed(fn, expected, what):
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if _cuda.launches != expected:
+            raise AssertionError(f"swint-flagship {what}: launches "
+                                 f"{_cuda.launches}, expected {expected}")
+        return out, ms, dict(_cuda.launches)
+
+    model.eval()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    req_ms, req_launches = [], dict.fromkeys(KERNELS, 0)
+    for seed in range(REQUESTS):
+        batch = synthetic_batch(cfg, 1, seed=seed)
+        out, ms, launches = timed(
+            lambda: model.predict(to_device(batch, "cuda")),
+            SWINT_PER_REQUEST, f"request {seed}")
+        occ = out["semantic_occ"]
+        if (occ.shape != (1, sx, sy, sz) or int(occ.min()) < 0
+                or int(occ.max()) > cfg.num_classes - 1):
+            raise AssertionError(f"swint-flagship: semantic_occ "
+                                 f"{tuple(occ.shape)}")
+        req_ms.append(ms)
+        req_launches = {k: req_launches[k] + launches[k] for k in launches}
+    req_peak = torch.cuda.max_memory_allocated()
+    batch = synthetic_batch(cfg, 1, seed=0)
+    req_profile = profile_call(lambda: model.predict(to_device(batch, "cuda")))
+
+    state = create_train_state(model, make_optimizer(model.parameters()),
+                               conf["ema"]["init_updates"])
+    step = make_train_step(conf["ema"]["decay"])
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms, metrics, step_launches = [], [], dict.fromkeys(KERNELS, 0)
+    for i in range(TRAIN_STEPS):
+        batch = synthetic_batch(cfg, 1, seed=100 + i, with_labels=True)
+        (_, m), ms, launches = timed(
+            lambda: step(state, to_device(batch, "cuda"), gen),
+            SWINT_PER_STEP, f"step {i}")
+        m = {k: float(v) for k, v in m.items()}
+        for k, v in m.items():
+            if not math.isfinite(v):
+                raise AssertionError(f"swint-flagship step {i}: {k} = {v}")
+        step_ms.append(ms)
+        metrics.append(m)
+        step_launches = {k: step_launches[k] + launches[k] for k in launches}
+    return {"routes": routes, "request_ms": req_ms,
+            "request_peak_bytes": req_peak, "request_launches": req_launches,
+            "request_profile": req_profile,
+            "step_ms": step_ms, "step_ms_2_3": statistics.mean(step_ms[1:]),
+            "step_peak_bytes": torch.cuda.max_memory_allocated(),
+            "step_launches": step_launches, "metrics": metrics,
+            "params": sum(p.numel() for p in model.parameters())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -764,37 +1187,46 @@ def main() -> int:
 
     flag_cfg = PreWorldConfig()
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = phase("kernel K1/K2", lambda: check_swin(gen)) or {}
-    rows["plane_sweep_cost_hom"] = [
-        phase("kernel K3", lambda: check_cost_volume(gen, flag_cfg))]
+    rows = {}
+    rows.update(phase("kernel K1/K2", lambda: check_swin(gen)) or {})
+    rows["plane_sweep_cost_hom"] = phase(
+        "kernel K3", lambda: check_cost_volume(gen, flag_cfg))
     rows["bev_pool_fused"] = [
         phase("kernel K4", lambda: check_bev_pool(gen, flag_cfg))]
+    rows.update(phase("kernel K5/K6", lambda: check_window_attn(gen)) or {})
     for name, (label, _, _) in KERNELS.items():
         if name in BWD_KERNELS:
             continue
         atol, rtol = TOL[name]
-        for r in rows.get(name) or [None]:
+        for r in rows.get(name) or []:
             if r is None:
                 continue
             ok = r["n_bad"] == 0
             if not ok:
                 failures.append(f"kernel {label} {r['shape']}")
+            lib = (f", F.scaled_dot_product_attention {r['library_ms']:.3f} ms"
+                   if "library_ms" in r else "")
             status(f"kernel {label}",
-                   f"{'ok' if ok else 'MISMATCH'} {r['shape']}: max abs err "
+                   f"{'ok' if ok else 'MISMATCH'} {r['shape']}"
+                   f"{' (extra width)' if r.get('extra') else ''}: max abs err "
                    f"{r['max_abs_err']:.3g}, max rel err {r['max_rel_err']:.3g}"
                    f", {r['n_bad']} of {r['numel']} outside atol {atol} + "
                    f"rtol {rtol}; kernel {r['ms']:.3f} ms, plain "
-                   f"{r['plain_ms']:.3f} ms")
-
-    ref = phase("reference", check_reference)
-    if ref is not None:
-        status("reference", "ok " + json.dumps(ref))
-    flag = phase("flagship", run_flagship)
-    if flag is not None:
-        status("flagship", "ok " + json.dumps(flag))
+                   f"{r['plain_ms']:.3f} ms{lib}")
     torch.cuda.empty_cache()
 
+    runs = {}
+    for name, fn in (("reference", check_reference),
+                     ("flagship", run_flagship)):
+        runs[name] = phase(name, fn)
+        if runs[name] is not None:
+            status(name, "ok " + json.dumps(runs[name]))
+        torch.cuda.empty_cache()
+
     rows.update(phase("kernel K1b/K2b", lambda: check_swin_bwd(gen)) or {})
+    torch.cuda.empty_cache()
+    rows.update(phase("kernel K5b/K6b", lambda: check_window_attn_bwd(gen))
+                or {})
     for name in BWD_KERNELS:
         label = KERNELS[name][0]
         for r in rows.get(name) or []:
@@ -802,34 +1234,56 @@ def main() -> int:
                 failures.append(f"kernel {label} {r['shape']}")
             grads = ", ".join(f"{n} {g['rel_l2']:.2e}"
                               for n, g in r["grads"].items())
+            lib = (f", F.scaled_dot_product_attention forward + backward "
+                   f"{r['library_ms']:.3f} ms" if "library_ms" in r else "")
+            shape = r["shape"] + (" (Swin-T width)" if r.get("extra") else "")
             status(f"kernel {label}",
-                   f"{'ok' if r['ok'] else 'MISMATCH'} {r['shape']}: rel-L2 "
+                   f"{'ok' if r['ok'] else 'MISMATCH'} {shape}: rel-L2 "
                    f"{grads} (limit {BWD_REL_L2}); max abs err "
                    f"{r['max_abs_err']:.3g}; bit-identical over two runs "
                    f"{r['bit_identical']}; kernel {r['ms']:.3f} ms, plain "
-                   f"{r['plain_ms']:.3f} ms")
+                   f"{r['plain_ms']:.3f} ms{lib}")
     torch.cuda.empty_cache()
-    tref = phase("train-reference", check_train_reference)
-    if tref is not None:
-        status("train-reference", "ok " + json.dumps(tref))
-    torch.cuda.empty_cache()
-    tflag = phase("train-flagship", run_train_flagship)
-    if tflag is not None:
-        status("train-flagship", "ok " + json.dumps(tflag))
+    swint = dict(routes=[("window", False)] * 2 + [("block", True)] * 2,
+                 swin_embed_dims=SWINT["embed_dims"],
+                 swin_num_heads=SWINT["num_heads"])
+    for name, fn in (("train-reference", check_train_reference),
+                     ("train-flagship", run_train_flagship),
+                     ("swin-routes", run_swin_routes),
+                     ("swint-reference", lambda: check_reference(**swint)),
+                     ("swint-flagship", run_swint_flagship)):
+        runs[name] = phase(name, fn)
+        if runs[name] is not None:
+            status(name, "ok " + json.dumps(runs[name]))
+        torch.cuda.empty_cache()
     if failures:
         print(f"chip_smoke: FAILED phases: {failures}", file=sys.stderr)
         return 1
 
+    # each kernel's launches come from the run of the path it serves
+    launch_runs = {"fused_swin_attn_block_bwd": runs["train-flagship"],
+                   "fused_swin_mlp_bwd": runs["train-flagship"],
+                   "band_window_attention": runs["swin-routes"],
+                   "band_window_attention_bwd": runs["swin-routes"]}
+    launches = {name: launch_runs.get(name, runs["flagship"])["launches"][name]
+                for name in KERNELS}
+    launches["fused_window_attention"] = \
+        runs["swint-flagship"]["request_launches"]["fused_window_attention"]
+    launches["fused_window_attention_bwd"] = \
+        runs["swint-flagship"]["step_launches"]["fused_window_attention_bwd"]
     kernels = []
     for name, (label, source, replaces) in KERNELS.items():
-        rs = rows[name]
-        run = tflag if name in BWD_KERNELS else flag
+        rs = [r for r in rows[name] if not r.get("extra")]
+        bound_ms, bound_by = bound(rs)
+        lib = [r.get("library_ms") for r in rs]
         kernels.append({
             "name": f"{label} {name}", "route": "cuda", "source": source,
-            "replaces": replaces, "launches": run["launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rs),
             "ms": sum(r["ms"] for r in rs),
             "plain_ms": sum(r["plain_ms"] for r in rs),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None if None in lib else sum(lib),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,13 +10,16 @@
 // x sub-window approximations (an MXU one-hot contraction) are not carried
 // over -- on this card a bilinear gather is four coalesced row reads.
 //
-// Layout: one warp per output pixel (bn, y, x) with the C = 128 channels
-// spread over the lanes (CPL = 4 contiguous channels each); the warp keeps its
-// curr row in registers and walks all D planes, computing the sample
-// coordinates from the plane's 9 homography scalars. The coordinate and
-// interpolation arithmetic uses explicitly rounded operations (no FMA
-// contraction) in the same order as the plain PyTorch version, so both
-// land on the same sample positions and the same "sampled nothing" flags.
+// Layout: one warp per output pixel (bn, y, x); the C channels go over the
+// lanes in NCH chunks of 128, CPL = 4 contiguous channels of each chunk per
+// lane. The warp keeps its curr row in registers and walks all D planes,
+// computing the sample coordinates from the plane's 9 homography scalars.
+// The coordinate and interpolation arithmetic uses explicitly rounded
+// operations (no FMA contraction) in the same order as the plain PyTorch
+// version, so both land on the same sample positions and the same "sampled
+// nothing" flags. Built for C = 128 k, k = 1 ... 12: every stereo width the
+// route admits (a multiple of 128) up to 1536, past every Swin stage-0
+// width (96 ... 192).
 //
 // Bound on H100: gathers -- per (pixel, plane) four C-wide bf16 rows from
 // the previous frame's feature map (one camera's map, 11.5 MB at the
@@ -29,14 +32,17 @@ namespace pw {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int CPL = 4;  // channels per lane
-constexpr int C = CPL * 32;
+constexpr int CPL = 4;         // channels per lane in one chunk
+constexpr int CHUNK = CPL * 32;  // channels per chunk
+constexpr int MAX_NCH = 12;      // C up to 1536
 
+template <int NCH>
 __global__ void plane_sweep_hom_kernel(const bf16* __restrict__ prev,
                                        const bf16* __restrict__ curr,
                                        const float* __restrict__ hom,
                                        float* __restrict__ out, int BN, int D,
                                        int H, int W, float bias) {
+  constexpr int C = NCH * CHUNK;
   const int lane = threadIdx.x & 31;
   const long long pix = (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
   if (pix >= (long long)BN * H * W) return;
@@ -44,21 +50,23 @@ __global__ void plane_sweep_hom_kernel(const bf16* __restrict__ prev,
   const int y = (int)((pix / W) % H);
   const int bn = (int)(pix / ((long long)W * H));
 
-  float cur[CPL];
+  float cur[NCH][CPL];
   const bf16* crow = curr + (size_t)pix * C + lane * CPL;
 #pragma unroll
-  for (int i = 0; i < CPL; ++i) cur[i] = __bfloat162float(crow[i]);
+  for (int k = 0; k < NCH; ++k)
+#pragma unroll
+    for (int i = 0; i < CPL; ++i) cur[k][i] = __bfloat162float(crow[k * CHUNK + i]);
   const bf16* pimg = prev + (size_t)bn * H * W * C + lane * CPL;
-  const int ci = C - 4;  // the "sampled nothing" channel
-  const int ci_lane = ci / CPL, ci_off = ci % CPL;
   const float xf = (float)x, yf = (float)y;
 
   for (int d = 0; d < D; ++d) {
     const float* h = hom + ((size_t)bn * D + d) * 9;
     float den = __fadd_rn(__fmul_rn(h[6], xf), __fadd_rn(__fmul_rn(h[7], yf), h[8]));
-    float s[CPL];
+    float s[NCH][CPL];
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) s[i] = 0.f;
+    for (int k = 0; k < NCH; ++k)
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) s[k][i] = 0.f;
     if (!(den < 1e-3f)) {
       float inv = __fdiv_rn(1.0f, den);
       float gx = __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(h[0], xf), __fmul_rn(h[1], yf)), h[2]), inv);
@@ -69,45 +77,65 @@ __global__ void plane_sweep_hom_kernel(const bf16* __restrict__ prev,
         float wx0 = __fsub_rn(1.f, wx1), wy0 = __fsub_rn(1.f, wy1);
         int x0 = (int)x0f, y0 = (int)y0f;
         bool vx0 = x0 >= 0, vx1 = x0 + 1 < W, vy0 = y0 >= 0, vy1 = y0 + 1 < H;
-        float v00[CPL], v01[CPL], v10[CPL], v11[CPL];
-#pragma unroll
-        for (int i = 0; i < CPL; ++i) v00[i] = v01[i] = v10[i] = v11[i] = 0.f;
         // corner rows; only the in-range corners are read
         const bf16* r0 = pimg + ((long long)y0 * W + x0) * C;
         const bf16* r1 = r0 + (long long)W * C;
 #pragma unroll
-        for (int i = 0; i < CPL; ++i) {
-          if (vy0 && vx0) v00[i] = __bfloat162float(r0[i]);
-          if (vy0 && vx1) v01[i] = __bfloat162float(r0[C + i]);
-          if (vy1 && vx0) v10[i] = __bfloat162float(r1[i]);
-          if (vy1 && vx1) v11[i] = __bfloat162float(r1[C + i]);
-        }
+        for (int k = 0; k < NCH; ++k) {
+          const int c0 = k * CHUNK;
+          float v00[CPL], v01[CPL], v10[CPL], v11[CPL];
 #pragma unroll
-        for (int i = 0; i < CPL; ++i) {
-          float top = __fadd_rn(__fmul_rn(v00[i], wx0), __fmul_rn(v01[i], wx1));
-          float bot = __fadd_rn(__fmul_rn(v10[i], wx0), __fmul_rn(v11[i], wx1));
-          s[i] = __fadd_rn(__fmul_rn(top, wy0), __fmul_rn(bot, wy1));
+          for (int i = 0; i < CPL; ++i) v00[i] = v01[i] = v10[i] = v11[i] = 0.f;
+#pragma unroll
+          for (int i = 0; i < CPL; ++i) {
+            if (vy0 && vx0) v00[i] = __bfloat162float(r0[c0 + i]);
+            if (vy0 && vx1) v01[i] = __bfloat162float(r0[C + c0 + i]);
+            if (vy1 && vx0) v10[i] = __bfloat162float(r1[c0 + i]);
+            if (vy1 && vx1) v11[i] = __bfloat162float(r1[C + c0 + i]);
+          }
+#pragma unroll
+          for (int i = 0; i < CPL; ++i) {
+            float top = __fadd_rn(__fmul_rn(v00[i], wx0), __fmul_rn(v01[i], wx1));
+            float bot = __fadd_rn(__fmul_rn(v10[i], wx0), __fmul_rn(v11[i], wx1));
+            s[k][i] = __fadd_rn(__fmul_rn(top, wy0), __fmul_rn(bot, wy1));
+          }
         }
       }
     }
-    float acc = 0.f, sci = 0.f;
+    float acc = 0.f;
 #pragma unroll
-    for (int i = 0; i < CPL; ++i) {
-      acc += fabsf(cur[i] - s[i]);
-      if (i == ci_off) sci = s[i];
-    }
+    for (int k = 0; k < NCH; ++k)
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) acc += fabsf(cur[k][i] - s[k][i]);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    sci = __shfl_sync(0xffffffffu, sci, ci_lane);
+    // the "sampled nothing" channel C - 4: the last chunk's lane 31, slot 0
+    const float sci = __shfl_sync(0xffffffffu, s[NCH - 1][0], 31);
     if (lane == 0)
       out[(((size_t)bn * D + d) * H + y) * W + x] = acc + (sci == 0.f ? bias : 0.f);
   }
 }
 
+template <int NCH>
+int launch_plane_sweep(const bf16* prev, const bf16* curr, const float* hom, float* out,
+                       int BN, int D, int H, int W, int C, float bias, unsigned blocks,
+                       cudaStream_t stream) {
+  if (C == NCH * CHUNK) {
+    plane_sweep_hom_kernel<NCH><<<blocks, 256, 0, stream>>>(prev, curr, hom, out, BN, D, H, W,
+                                                            bias);
+    return (int)cudaGetLastError();
+  }
+  if constexpr (NCH < MAX_NCH)
+    return launch_plane_sweep<NCH + 1>(prev, curr, hom, out, BN, D, H, W, C, bias, blocks,
+                                       stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace pw
 
 // prev, curr: (BN, H, W, C) bf16; hom: (BN, D, 3, 3) f32; out: (BN, D, H, W) f32.
-// C must be 128 (Swin-B stage 0). Returns cudaGetLastError() (0 on success).
+// C = 128 k, k = 1 ... 12. Returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for another C.
 extern "C" int pw_plane_sweep_cost_hom(const void* prev, const void* curr, const float* hom,
                                        float* out, int BN, int D, int H, int W, int C,
                                        float bias, void* stream_ptr) {
@@ -115,9 +143,7 @@ extern "C" int pw_plane_sweep_cost_hom(const void* prev, const void* curr, const
   const int warps_per_block = 8;
   const long long pixels = (long long)BN * H * W;
   const unsigned blocks = (unsigned)((pixels + warps_per_block - 1) / warps_per_block);
-  const auto* p = static_cast<const pw::bf16*>(prev);
-  const auto* c = static_cast<const pw::bf16*>(curr);
-  if (C != pw::C) return (int)cudaErrorInvalidValue;
-  pw::plane_sweep_hom_kernel<<<blocks, 256, 0, stream>>>(p, c, hom, out, BN, D, H, W, bias);
-  return (int)cudaGetLastError();
+  return pw::launch_plane_sweep<1>(static_cast<const pw::bf16*>(prev),
+                                   static_cast<const pw::bf16*>(curr), hom, out, BN, D, H, W,
+                                   C, bias, blocks, stream);
 }

@@ -641,7 +641,8 @@ inline int ln_bwd_splits(int M) {
   return s > 1024 ? 1024 : (s < 1 ? 1 : s);
 }
 
-// Returns cudaErrorInvalidValue for a width the kernel is not built for.
+// Built for every width C = 128 k up to 1536 (the Swin-T/S/B/L stages that
+// take K1 / K2: 128 ... 1536); returns cudaErrorInvalidValue for another.
 inline cudaError_t ln_bwd(const bf16* x, const float* stats, const float* ln_w,
                           const float* dyln, const bf16* dres, bf16* dx, float* part,
                           float* dln, int M, int C, int pad_mask, int Hp, int Wp, int Hv,
@@ -654,8 +655,16 @@ inline cudaError_t ln_bwd(const bf16* x, const float* stats, const float* ln_w,
   switch (C) {
     case 128: PW_LN_BWD(4); break;
     case 256: PW_LN_BWD(8); break;
+    case 384: PW_LN_BWD(12); break;
     case 512: PW_LN_BWD(16); break;
+    case 640: PW_LN_BWD(20); break;
+    case 768: PW_LN_BWD(24); break;
+    case 896: PW_LN_BWD(28); break;
     case 1024: PW_LN_BWD(32); break;
+    case 1152: PW_LN_BWD(36); break;
+    case 1280: PW_LN_BWD(40); break;
+    case 1408: PW_LN_BWD(44); break;
+    case 1536: PW_LN_BWD(48); break;
     default: return cudaErrorInvalidValue;
   }
 #undef PW_LN_BWD

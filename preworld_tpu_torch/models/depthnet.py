@@ -148,11 +148,17 @@ def gen_stereo_homography(frustum, k2s_sensor, intrins, post_rots,
 def stereo_cost_volume(prev_feat, curr_feat, grid, bias: float,
                        depth_chunk: int = 8):
     """Plain abs-diff plane-sweep cost from a (B*N, D*H, W, 2) grid, as
-    softmax(-cost) over D: (B*N, D, H, W). prev/curr (B*N, H, W, C)."""
+    softmax(-cost) over D: (B*N, D, H, W) f32. prev/curr (B*N, H, W, C),
+    sampled and compared in f32."""
     BN, H, W, C = curr_feat.shape
     D = grid.shape[1] // H
-    prev_nchw = to_cf(prev_feat)
-    curr_nchw = to_cf(curr_feat)
+    # F.grid_sample takes the grid in the input's dtype, and a bf16 grid
+    # would round sample positions by up to 1/512 of the map's width (0.7
+    # pixel at 352); the JAX grid sampler keeps f32 coordinates, so sample
+    # in f32
+    prev_nchw = to_cf(prev_feat.float())
+    curr_nchw = to_cf(curr_feat.float())
+    grid = grid.float()
     costs = []
     g = grid.reshape(BN, D, H, W, 2)
     for d0 in range(0, D, depth_chunk):

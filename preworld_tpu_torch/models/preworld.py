@@ -56,6 +56,7 @@ from .layers import ConvNormAct, MlpSequence, recompute_context
 from .occ_head import OccHead
 from .resnet import CustomResNet3D
 from .swin import SwinTransformer
+from ..ops.cost_volume_pallas import plane_sweep_supported
 from .view_transformer import (
     LSSViewTransformer,
     check_planar_post_aug,
@@ -136,14 +137,22 @@ class PreWorld(nn.Module):
                 window_size=c.swin_window, return_stereo_feat=True)
             e = c.swin_embed_dims
             neck_in = e * 4 + e * 8
+            stereo_channels = e
         else:
             self.img_backbone = TinyBackbone()
             neck_in = 32 + 64
+            stereo_channels = 16
         self.img_neck = FPN_LSS(neck_in, c.neck_out_channels)
         self.view_transformer = LSSViewTransformer(
             c.grid, c.input_size, downsample=16,
             in_channels=c.neck_out_channels, out_channels=c.num_trans_channels,
             cost_volume_bias=5.0)
+        cv_down = self.view_transformer.cv_downsample
+        # the stereo cost volume's route (K3 or the grid route), fixed by
+        # the stage-0 feature shape
+        self.stereo_on_plane_sweep = plane_sweep_supported(
+            (1, c.input_size[0] // cv_down, c.input_size[1] // cv_down,
+             stereo_channels))
         # f32 frustum templates: pooling resolution and cost-volume resolution
         self.register_buffer(
             "pool_frustum",
@@ -230,7 +239,8 @@ class PreWorld(nn.Module):
         if train and generator is None:
             raise ValueError("train=True needs a torch.Generator")
         gen = generator if train else None
-        check_planar_post_aug(batch["post_rots"])
+        if self.stereo_on_plane_sweep:
+            check_planar_post_aug(batch["post_rots"])
         s2keyego = sensor2keyego_chain(batch["sensor2egos"],
                                        batch["ego2globals"])
         curr2adj = curr2adjsensor_chain(batch["sensor2egos"],

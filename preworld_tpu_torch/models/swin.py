@@ -1,34 +1,60 @@
-"""Swin Transformer backbone (Swin-B "stbase" config).
+"""Swin Transformer backbone (Swin-B "stbase" config and other widths).
 
-Counterpart of `preworld_tpu/models/swin.py`. Every stage runs on the
-stage-persistent padded (B, Hp, Wp, C) layout: the input is padded once
-per stage to a multiple of the window, every block runs the two half-block
-kernels on it (K1 `ops/swin_block_pallas.py`, K2 `ops/swin_mlp_pallas.py`;
-their plain versions on CPU tensors), and the stage slices the real region
-once at its end. The window is clamped to min(window, H, W) and the shift
-is 0 when that window covers the whole feature map, as in the JAX package.
-PatchMerging uses the unfold channel order c*4 + kh*2 + kw.
+Counterpart of `preworld_tpu/models/swin.py`, with the JAX package's TPU
+routes chosen per stage by shape (`stage_route`, the gates of the JAX
+`SwinTransformer` and `SwinBlock` with every `None` knob read as on):
 
-Stochastic depth in training: block k of the 24 drops its attention and
-its MLP branch per image with rate linspace(0, drop_path_rate, 24)[k], the
-kept branches scaled by 1 / keep (the K1 per-image and K2 per-row
-`row_scale`). `draw_drop_scales` draws the masks from an explicit
-`torch.Generator` on the host, so a checkpoint recompute and the CPU and
-card runs of one step see the same masks.
+  block   C % 128 == 0 and N % 16 == 0: the stage runs on the
+          stage-persistent padded (B, Hp, Wp, C) layout, padded once per
+          stage, each block the two half-block kernels K1
+          (`ops/swin_block_pallas.py`) and K2 (`ops/swin_mlp_pallas.py`);
+  band    per block, C % 128 == 0 with the block kernel off
+          (`use_block_attn=False`): LN1, pad, roll, the qkv Linear on the
+          image layout, K6 (`ops/window_attn_pallas.py::band_window_attention`),
+          proj, roll back, slice, residual;
+  window  per block, C % 128 != 0 and N % 16 == 0: the same around window
+          partition / reverse and K5 (`fused_window_attention`);
+  plain   per block, N % 16 != 0: the same with the window attention in
+          plain torch (K5's plain version; no kernel, as the JAX package
+          takes XLA's einsums there).
+
+N is the stage's window area. Per-block stages run the MLP half on K2
+when C % 128 == 0, else Linear-GELU-Linear. On CPU tensors every kernel
+wrapper runs its plain version; on CUDA tensors a kernel raises on a shape
+it is not built for, and nothing is rerouted. The window is clamped to
+min(window, H, W) and the shift is 0 when that window covers the whole
+feature map, as in the JAX package. PatchMerging uses the unfold channel
+order c*4 + kh*2 + kw. Every route has the same parameter tree.
+
+Stochastic depth in training: block k drops its attention and its MLP
+branch per image with rate linspace(0, drop_path_rate, depth)[k], the kept
+branches scaled by 1 / keep (K1's per-image and K2's per-row `row_scale`,
+or a per-image factor on the per-block routes). `draw_drop_scales` draws
+the masks from an explicit `torch.Generator` on the host, so a checkpoint
+recompute and the CPU and card runs of one step see the same masks.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.swin_block_pallas import fused_swin_attn_block
+from ..ops.swin_block_pallas import fused_swin_attn_block, region_mask
 from ..ops.swin_mlp_pallas import fused_swin_mlp
+from ..ops.window_attn_pallas import (
+    band_window_attention_vjp,
+    fused_window_attention_plain,
+    fused_window_attention_vjp,
+    window_partition,
+    window_reverse,
+)
 from .layers import Conv2d, LayerNorm, Linear
+
+ROUTES = ("block", "band", "window", "plain")
 
 
 def relative_position_index(ws: int) -> np.ndarray:
@@ -57,6 +83,33 @@ def shifted_window_region_ids(H: int, W: int, ws: int, shift: int) -> np.ndarray
     return m.transpose(0, 1, 3, 2, 4, 5).reshape(-1, ws * ws)
 
 
+def shifted_window_mask(H: int, W: int, ws: int, shift: int,
+                        device=None) -> torch.Tensor:
+    """Attention mask for SW-MSA: (nW, ws*ws, ws*ws) f32 of 0 / -100."""
+    ids = torch.from_numpy(shifted_window_region_ids(H, W, ws, shift))
+    return region_mask(ids.to(device))
+
+
+def stage_route(dim: int, n_tokens: int, use_fused_attn=None,
+                use_fused_mlp=None, use_band_attn=None, use_block_attn=None
+                ) -> Tuple[str, bool]:
+    """(attention route, MLP on K2) of a stage of width `dim` whose window
+    holds `n_tokens` tokens: the gates of the JAX `SwinTransformer`
+    (stage) and `SwinBlock` (block), each knob with the JAX meaning and
+    `None` read as on."""
+    fused = True if use_fused_attn is None else bool(use_fused_attn)
+    block = fused if use_block_attn is None else bool(use_block_attn)
+    if block and dim % 128 == 0 and n_tokens % 16 == 0:
+        route = "block"
+    else:
+        fused = fused and n_tokens % 16 == 0
+        band = fused if use_band_attn is None else bool(use_band_attn)
+        band = band and fused and dim % 128 == 0
+        route = "band" if band else "window" if fused else "plain"
+    mlp = True if use_fused_mlp is None else bool(use_fused_mlp)
+    return route, mlp and dim % 128 == 0
+
+
 class WindowMSA(nn.Module):
     """Parameter holder of the window attention (qkv, proj, bias table)."""
 
@@ -79,13 +132,16 @@ class WindowMSA(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    """One Swin block on the padded layout: K1 (attention half) then K2
-    (MLP half). `window_size` is the stage's clamped window; `shift` is the
-    roll of a shifted block (0 for W-MSA)."""
+    """One Swin block. `window_size` is the stage's clamped window; `shift`
+    the roll of a shifted block (0 for W-MSA); `route` one of ROUTES and
+    `fused_mlp` whether the MLP half runs on K2 (`stage_route`)."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
-                 shift: int, mlp_ratio: int = 4):
+                 shift: int, mlp_ratio: int = 4, route: str = "block",
+                 fused_mlp: bool = True):
         super().__init__()
+        if route not in ROUTES:
+            raise ValueError(f"route {route!r} is not one of {ROUTES}")
         self.norm1 = LayerNorm(dim, eps=1e-5)
         self.attn = WindowMSA(dim, num_heads, window_size)
         self.norm2 = LayerNorm(dim, eps=1e-5)
@@ -94,24 +150,71 @@ class SwinBlock(nn.Module):
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift = shift
+        self.route = route
+        self.fused_mlp = fused_mlp
 
-    def forward(self, x, hw, region_ids, drop=None):
-        """x: padded (B, Hp, Wp, C); hw: the real (H, W); region_ids:
-        (nW, N) shift-region table of a shifted block, else None; drop:
-        per-image (attention, MLP) branch scales (B,) of stochastic depth,
-        or None. The f32 weights go to the kernel wrappers as they are."""
-        H, W = hw
-        a = self.attn
+    def forward(self, x, hw, mask, drop=None):
+        """Block route: x padded (B, Hp, Wp, C), hw the real (H, W), mask
+        the (nW, N) region-id table of a shifted block. Per-block routes: x
+        (B, H, W, C), mask the (nW, N, N) f32 shift mask. mask is None for
+        W-MSA; drop: per-image (attention, MLP) branch scales (B,) of
+        stochastic depth, or None. The f32 weights go to the kernel
+        wrappers as they are."""
         rs1, rs2 = (None, None) if drop is None else drop
-        if rs2 is not None:
-            rs2 = rs2[:, None].expand(-1, x.shape[1] * x.shape[2]).reshape(-1)
-        y = fused_swin_attn_block(
-            x, self.norm1.weight, self.norm1.bias, a.qkv.weight, a.qkv.bias,
-            a.proj.weight, a.proj.bias, a.rel_bias(), region_ids, rs1,
-            self.num_heads, self.window_size, H, W, self.shift)
-        return fused_swin_mlp(
-            y, self.norm2.weight, self.norm2.bias, self.mlp_fc1.weight,
-            self.mlp_fc1.bias, self.mlp_fc2.weight, self.mlp_fc2.bias, rs2)
+        if self.route == "block":
+            H, W = hw
+            a = self.attn
+            y = fused_swin_attn_block(
+                x, self.norm1.weight, self.norm1.bias, a.qkv.weight,
+                a.qkv.bias, a.proj.weight, a.proj.bias, a.rel_bias(), mask,
+                rs1, self.num_heads, self.window_size, H, W, self.shift)
+        else:
+            y = x + _branch_scale(self._attention(x, mask), rs1)
+        return self._mlp(y, rs2)
+
+    def _attention(self, x, mask):
+        """Per-block attention branch: LN1 -> zero pad -> roll -> qkv ->
+        window attention -> proj -> roll back -> slice."""
+        B, H, W, C = x.shape
+        ws, shift, heads = self.window_size, self.shift, self.num_heads
+        a = self.attn
+        y = F.pad(self.norm1(x), (0, 0, 0, (-W) % ws, 0, (-H) % ws))
+        Hp, Wp = y.shape[1:3]
+        if shift:
+            y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+        bias = a.rel_bias()
+        if self.route == "band":
+            qkv = a.qkv(y)
+            y = a.proj(band_window_attention_vjp(qkv, bias, mask, heads, ws))
+        else:
+            qkv = a.qkv(window_partition(y, ws))
+            attend = (fused_window_attention_vjp if self.route == "window"
+                      else fused_window_attention_plain)
+            y = window_reverse(a.proj(attend(qkv, bias, mask, heads)), ws,
+                               Hp, Wp)
+        if shift:
+            y = torch.roll(y, (shift, shift), dims=(1, 2))
+        return y[:, :H, :W]
+
+    def _mlp(self, x, rs):
+        """LN2 + MLP + residual on (B, ..., C): K2 or Linear-GELU-Linear."""
+        if self.fused_mlp:
+            if rs is not None:
+                per_image = x.numel() // (x.shape[0] * x.shape[-1])
+                rs = rs[:, None].expand(-1, per_image).reshape(-1)
+            return fused_swin_mlp(
+                x.contiguous(), self.norm2.weight, self.norm2.bias,
+                self.mlp_fc1.weight, self.mlp_fc1.bias, self.mlp_fc2.weight,
+                self.mlp_fc2.bias, rs)
+        y = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x))))
+        return x + _branch_scale(y, rs)
+
+
+def _branch_scale(y, rs):
+    """y times the per-image stochastic-depth scale rs (B,), or y."""
+    if rs is None:
+        return y
+    return y * rs.to(y.dtype).reshape((-1,) + (1,) * (y.dim() - 1))
 
 
 class PatchMerging(nn.Module):
@@ -139,7 +242,9 @@ class SwinTransformer(nn.Module):
     the stage-0 stereo feature when return_stereo_feat.
 
     `input_size` fixes every stage's feature size, hence its clamped
-    window (which sizes the relative-position tables) and shifts.
+    window (which sizes the relative-position tables), its shifts and its
+    route (`stage_route`, from the four JAX knobs; `stage_routes` lists
+    them).
     """
 
     def __init__(self, input_size: Tuple[int, int], embed_dims: int = 128,
@@ -148,7 +253,11 @@ class SwinTransformer(nn.Module):
                  window_size: int = 12, mlp_ratio: int = 4,
                  patch_size: int = 4, out_indices: Sequence[int] = (2, 3),
                  drop_path_rate: float = 0.1,
-                 return_stereo_feat: bool = True, patch_norm: bool = True):
+                 return_stereo_feat: bool = True, patch_norm: bool = True,
+                 use_fused_attn: Optional[bool] = None,
+                 use_fused_mlp: Optional[bool] = None,
+                 use_band_attn: Optional[bool] = None,
+                 use_block_attn: Optional[bool] = None):
         super().__init__()
         self.depths = tuple(depths)
         self.drop_path_rate = drop_path_rate
@@ -161,13 +270,18 @@ class SwinTransformer(nn.Module):
         dim = embed_dims
         Hs, Ws = input_size[0] // patch_size, input_size[1] // patch_size
         self.stage_hw = []
+        self.stage_routes = []
         for i, depth in enumerate(self.depths):
             self.stage_hw.append((Hs, Ws))
             ws = min(window_size, Hs, Ws)
+            route = stage_route(dim, ws * ws, use_fused_attn, use_fused_mlp,
+                                use_band_attn, use_block_attn)
+            self.stage_routes.append(route)
             for j in range(depth):
                 shift = ws // 2 if (j % 2 == 1 and ws < min(Hs, Ws)) else 0
                 setattr(self, f"stage{i}_block{j}",
-                        SwinBlock(dim, num_heads[i], ws, shift, mlp_ratio))
+                        SwinBlock(dim, num_heads[i], ws, shift, mlp_ratio,
+                                  *route))
             if i < len(self.depths) - 1:
                 setattr(self, f"downsample{i}", PatchMerging(dim, dim * 2))
             if i in self.out_indices:
@@ -175,15 +289,20 @@ class SwinTransformer(nn.Module):
             if i < len(self.depths) - 1:
                 dim *= 2
                 Hs, Ws = (Hs + 1) // 2, (Ws + 1) // 2
-        self._region_cache = {}
+        self._mask_cache = {}
 
-    def _region_ids(self, Hp, Wp, ws, shift, device):
-        key = (Hp, Wp, ws, shift, str(device))
-        if key not in self._region_cache:
-            ids = shifted_window_region_ids(Hp, Wp, ws, shift)
-            self._region_cache[key] = torch.from_numpy(
-                ids.astype(np.int32)).to(device)
-        return self._region_cache[key]
+    def _shift_mask(self, kind, Hp, Wp, ws, shift, device):
+        """The region-id table (block route) or the (nW, N, N) f32 mask
+        (per-block routes) of a shifted block, built once per device."""
+        key = (kind, Hp, Wp, ws, shift, str(device))
+        if key not in self._mask_cache:
+            if kind == "block":
+                ids = shifted_window_region_ids(Hp, Wp, ws, shift)
+                m = torch.from_numpy(ids.astype(np.int32)).to(device)
+            else:
+                m = shifted_window_mask(Hp, Wp, ws, shift, device)
+            self._mask_cache[key] = m
+        return self._mask_cache[key]
 
     def draw_drop_scales(self, batch: int, generator: torch.Generator,
                          stage0_only: bool = False):
@@ -216,22 +335,24 @@ class SwinTransformer(nn.Module):
             if (Hs, Ws) != self.stage_hw[i]:
                 raise ValueError(f"stage {i}: feature {(Hs, Ws)}, built for "
                                  f"{self.stage_hw[i]}")
+            block_route = self.stage_routes[i][0] == "block"
             ws = getattr(self, f"stage{i}_block0").window_size
-            pad_b = (ws - Hs % ws) % ws
-            pad_r = (ws - Ws % ws) % ws
-            xs = F.pad(x, (0, 0, 0, pad_r, 0, pad_b)).contiguous()
-            Hp, Wp = Hs + pad_b, Ws + pad_r
+            Hp, Wp = Hs + (-Hs) % ws, Ws + (-Ws) % ws
+            # the block route pads once per stage; per-block routes pad
+            # (and roll) inside each block
+            xs = (F.pad(x, (0, 0, 0, Wp - Ws, 0, Hp - Hs)).contiguous()
+                  if block_route else x)
             for j in range(depth):
                 blk = getattr(self, f"stage{i}_block{j}")
-                region = (self._region_ids(Hp, Wp, ws, blk.shift, x.device)
-                          if blk.shift else None)
+                mask = (self._shift_mask(blk.route, Hp, Wp, ws, blk.shift,
+                                         x.device) if blk.shift else None)
                 drop = None
                 if drop_scales is not None:
                     drop = drop_scales[sum(self.depths[:i]) + j]
                     if drop is not None:
                         drop = tuple(t.to(x.device, non_blocking=True)
                                      for t in drop)
-                xs = blk(xs, (Hs, Ws), region, drop)
+                xs = blk(xs, (Hs, Ws), mask, drop)
             out = xs[:, :Hs, :Ws]
             x = out
             if i < len(self.depths) - 1:

@@ -2,10 +2,13 @@
 
 Counterpart of `preworld_tpu/models/view_transformer.py`:
 `get_mlp_input`, `compute_stereo_cost_volume` and `LSSViewTransformer`.
-The stereo cost volume always takes the homography path (kernel K3), which
-is exact for 2-D image post-augs only: `PreWorld` checks the post-augs with
-`check_planar_post_aug` once per request and raises on a 3-D one. The voxel
-pooling always goes through K4's wrapper.
+The stereo cost volume takes the JAX package's routes by feature shape
+(`ops.cost_volume_pallas.plane_sweep_supported`): the homography path on
+kernel K3, exact for 2-D image post-augs only (`PreWorld` checks the
+post-augs with `check_planar_post_aug` once per request on this route and
+raises on a 3-D one), else the grid route, `gen_stereo_grid` and the plain
+`stereo_cost_volume` (F.grid_sample). The voxel pooling always goes
+through K4's wrapper.
 """
 
 from __future__ import annotations
@@ -17,8 +20,16 @@ import torch.nn as nn
 
 from ..geometry.frustum import GridConfig, frustum_pixel_indices
 from ..ops.bev_pool_pallas import bev_pool_fused
-from ..ops.cost_volume_pallas import plane_sweep_cost_hom
-from .depthnet import DepthNet, gen_stereo_homography
+from ..ops.cost_volume_pallas import (
+    plane_sweep_cost_hom,
+    plane_sweep_supported,
+)
+from .depthnet import (
+    DepthNet,
+    gen_stereo_grid,
+    gen_stereo_homography,
+    stereo_cost_volume,
+)
 
 
 def check_planar_post_aug(post_rot: torch.Tensor) -> None:
@@ -35,15 +46,24 @@ def check_planar_post_aug(post_rot: torch.Tensor) -> None:
 
 def compute_stereo_cost_volume(cv_frustum, cams, stereo, input_size, bias):
     """Temporal-stereo depth probability (B*N, D, Hc, Wc) in the feature
-    dtype: softmax over D of -cost from K3 on per-plane homographies (2-D
-    image post-augs only; see `check_planar_post_aug`)."""
+    dtype: softmax over D of -cost, from K3 on per-plane homographies where
+    `plane_sweep_supported` holds (2-D image post-augs only; see
+    `check_planar_post_aug`), else from the plain grid-sample cost volume
+    on `gen_stereo_grid`."""
+    dt = stereo["curr_feat"].dtype
+    if not plane_sweep_supported(stereo["prev_feat"].shape):
+        grid = gen_stereo_grid(
+            cv_frustum, stereo["k2s_sensor"], cams["intrin"],
+            cams["post_rot"], cams["post_tran"], input_size)
+        return stereo_cost_volume(stereo["prev_feat"], stereo["curr_feat"],
+                                  grid, bias).to(dt)
     hom = gen_stereo_homography(
         cv_frustum, stereo["k2s_sensor"], cams["intrin"], cams["post_rot"],
         cams["post_tran"], input_size)
     cost = plane_sweep_cost_hom(stereo["prev_feat"].contiguous(),
                                 stereo["curr_feat"].contiguous(),
                                 hom.contiguous(), bias=float(bias))
-    return torch.softmax(-cost, dim=1).to(stereo["curr_feat"].dtype)
+    return torch.softmax(-cost, dim=1).to(dt)
 
 
 def get_mlp_input(sensor2ego, ego2global, intrin, post_rot, post_tran, bda):

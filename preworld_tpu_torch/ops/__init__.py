@@ -1,4 +1,5 @@
-"""Kernel wrappers (K1-K4, K1b, K2b) and their plain PyTorch versions."""
+"""Kernel wrappers (K1-K6, K1b, K2b, K5b, K6b) and their plain PyTorch
+versions."""
 
 from .bev_pool import bev_pool
 from .bev_pool_pallas import bev_pool_fused
@@ -15,8 +16,19 @@ from .swin_mlp_pallas import (
     fused_swin_mlp_bwd_plain,
     fused_swin_mlp_plain,
 )
+from .window_attn_pallas import (
+    band_window_attention,
+    band_window_attention_bwd,
+    band_window_attention_vjp,
+    fused_window_attention,
+    fused_window_attention_bwd,
+    fused_window_attention_vjp,
+)
 
 __all__ = [
+    "band_window_attention",
+    "band_window_attention_bwd",
+    "band_window_attention_vjp",
     "bev_pool",
     "bev_pool_fused",
     "fused_swin_attn_block",
@@ -27,6 +39,9 @@ __all__ = [
     "fused_swin_mlp_bwd",
     "fused_swin_mlp_bwd_plain",
     "fused_swin_mlp_plain",
+    "fused_window_attention",
+    "fused_window_attention_bwd",
+    "fused_window_attention_vjp",
     "plane_sweep_cost_hom",
     "plane_sweep_cost_hom_plain",
 ]

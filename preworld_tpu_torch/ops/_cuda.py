@@ -34,7 +34,9 @@ NVCC_FLAGS = [
 LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 
 KERNELS = ("fused_swin_attn_block", "fused_swin_mlp", "plane_sweep_cost_hom",
-           "bev_pool_fused", "fused_swin_attn_block_bwd", "fused_swin_mlp_bwd")
+           "bev_pool_fused", "fused_swin_attn_block_bwd", "fused_swin_mlp_bwd",
+           "fused_window_attention", "band_window_attention",
+           "fused_window_attention_bwd", "band_window_attention_bwd")
 launches = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
@@ -49,9 +51,15 @@ _SIGNATURES = {
     "pw_swin_attn_block_bwd_part_elems": [_I] * 6,
     "pw_swin_mlp_bwd": [_P] * 19 + [_I] * 3 + [_P],
     "pw_swin_mlp_bwd_part_elems": [_I] * 3,
+    "pw_window_attn_packed": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "pw_window_attn_band": [_P] * 4 + [_I] * 6 + [_F, _P],
+    "pw_window_attn_bwd_part_elems": [_I] * 3,
+    "pw_window_attn_packed_bwd": [_P] * 7 + [_I] * 5 + [_F, _P],
+    "pw_window_attn_band_bwd": [_P] * 7 + [_I] * 6 + [_F, _P],
 }
 _RESTYPES = {"pw_swin_attn_block_bwd_part_elems": ctypes.c_longlong,
-             "pw_swin_mlp_bwd_part_elems": ctypes.c_longlong}
+             "pw_swin_mlp_bwd_part_elems": ctypes.c_longlong,
+             "pw_window_attn_bwd_part_elems": ctypes.c_longlong}
 
 _lib = None
 build_info: dict = {}

@@ -16,7 +16,10 @@ over. The caller applies softmax(-cost) over D.
 On a CUDA tensor `plane_sweep_cost_hom` launches `csrc/cost_volume.cu`;
 on a CPU tensor it runs `plane_sweep_cost_hom_plain`. The two compute the
 sample coordinates and bilinear weights with the same operations in the
-same order.
+same order. `plane_sweep_supported` (the JAX package's test) is the route
+test of the model's stereo cost volume: K3 where it holds (every such
+width is a multiple of 128; K3 is built for 128 ... 1536), else the grid
+route.
 """
 
 from __future__ import annotations
@@ -28,8 +31,26 @@ from . import _cuda
 # depth planes per step of the plain version (bounds its (BN, planes, H, W, C)
 # f32 sample tensors)
 _DEPTH_CHUNK = 8
-# the one channel width the kernel is built for: Swin stage 0 of Swin-B
-_KERNEL_C = 128
+# the kernel's builds: C = 128 k, k = 1 ... 12
+_KERNEL_CHUNK, _KERNEL_MAX_C = 128, 1536
+# the TPU kernel's output tile (rows, lane width), which its support test
+# reads
+TH, TW = 8, 128
+
+
+def plane_sweep_supported(feat_shape) -> bool:
+    """The JAX package's `plane_sweep_supported` (a copy): True iff the TPU
+    kernel's layout assumptions hold for (BN, H, W, C) stereo features: H
+    a multiple of the 8-row output tile, C a multiple of 128 lanes, and H
+    and the 128-padded W within the ranges its packed window starts
+    encode."""
+    _, H, W, C = feat_shape
+    wh = min(48, H)
+    wp = max(-(-W // TW) * TW, 256)
+    return (
+        H % TH == 0 and C % 128 == 0 and H - wh <= 127
+        and wp - min(224, wp) <= 15 * 16
+    )
 
 
 def plane_sweep_cost_hom_plain(prev, curr, hom, bias: float = 0.0):
@@ -85,8 +106,9 @@ def plane_sweep_cost_hom(prev, curr, hom, bias: float = 0.0):
         return plane_sweep_cost_hom_plain(prev, curr, hom, bias)
     BN, H, W, C = prev.shape
     D = hom.shape[1]
-    if C != _KERNEL_C:
-        raise ValueError(f"K3 takes C = {_KERNEL_C}, got {C}")
+    if C % _KERNEL_CHUNK or not 0 < C <= _KERNEL_MAX_C:
+        raise ValueError(f"K3 takes C = {_KERNEL_CHUNK} k up to "
+                         f"{_KERNEL_MAX_C}, got {C}")
     bf = torch.bfloat16
     _cuda.require(prev, "prev", bf)
     _cuda.require(curr, "curr", bf, prev.shape)

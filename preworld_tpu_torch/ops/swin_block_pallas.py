@@ -29,6 +29,11 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from .window_attn_pallas import (
+    fused_window_attention_plain,
+    window_partition,
+    window_reverse,
+)
 
 
 def region_mask(region_ids: torch.Tensor) -> torch.Tensor:
@@ -37,19 +42,6 @@ def region_mask(region_ids: torch.Tensor) -> torch.Tensor:
     return torch.where(ids[:, None, :] != ids[:, :, None],
                        torch.tensor(-100.0, device=ids.device),
                        torch.tensor(0.0, device=ids.device))
-
-
-def _windows(t, ws):
-    """(B, Hp, Wp, K) -> (B*nH*nW, N, K), windows row-major per image."""
-    B, Hp, Wp, K = t.shape
-    t = t.reshape(B, Hp // ws, ws, Wp // ws, ws, K).permute(0, 1, 3, 2, 4, 5)
-    return t.reshape(-1, ws * ws, K)
-
-
-def _unwindows(t, ws, B, Hp, Wp):
-    K = t.shape[-1]
-    t = t.reshape(B, Hp // ws, Wp // ws, ws, ws, K).permute(0, 1, 3, 2, 4, 5)
-    return t.reshape(B, Hp, Wp, K)
 
 
 def fused_swin_attn_block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
@@ -63,8 +55,6 @@ def fused_swin_attn_block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     """
     B, Hp, Wp, C = x.shape
     dt = x.dtype
-    d = C // heads
-    N = ws * ws
     xf = x.float()
     mu = xf.mean(-1, keepdim=True)
     xc = xf - mu
@@ -75,21 +65,12 @@ def fused_swin_attn_block_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
     y = (y * ok[None, :, :, None]).to(dt)
     if shift:
         y = torch.roll(y, (-shift, -shift), dims=(1, 2))
-    yw = _windows(y, ws)
-    Bw = yw.shape[0]
+    yw = window_partition(y, ws)
     qkv = (yw.float() @ wqkv.float().t() + bqkv.float()).to(dt)
-    q, k, v = qkv.reshape(Bw, N, 3, heads, d).permute(2, 0, 3, 1, 4)
-    s = (q.float() @ k.float().transpose(-1, -2)) * (float(d) ** -0.5)
-    if region_ids is not None:
-        m = region_mask(region_ids)
-        s = (s.reshape(B, -1, heads, N, N) + m[None, :, None]).reshape(
-            Bw, heads, N, N)
-    s = s + rel_bias.float()[None]
-    p = torch.softmax(s, dim=-1).to(dt)
-    o = (p.float() @ v.float()).to(dt)
-    o = o.permute(0, 2, 1, 3).reshape(Bw, N, C)
+    mask = None if region_ids is None else region_mask(region_ids)
+    o = fused_window_attention_plain(qkv, rel_bias, mask, heads)
     po = o.float() @ wproj.float().t() + bproj.float()
-    po = _unwindows(po, ws, B, Hp, Wp)
+    po = window_reverse(po, ws, Hp, Wp)
     if shift:
         po = torch.roll(po, (shift, shift), dims=(1, 2))
     if row_scale is not None:

@@ -227,9 +227,11 @@ def test_compute_stereo_cost_volume_matches_jax(sweep, monkeypatch):
 
 
 def test_non_planar_post_aug_raises():
-    """The homography is exact only for 2-D image post-augs: PreWorld
-    refuses a 3-D one before it queues any work."""
-    cfg = tiny_config(if_post_finetune=True)
+    """The homography is exact only for 2-D image post-augs: a PreWorld
+    whose stereo cost volume takes K3 (128 stereo channels) refuses a 3-D
+    one before it queues any work."""
+    cfg = tiny_config(if_post_finetune=True, backbone="swin",
+                      swin_embed_dims=128, swin_depths=(1, 1, 1, 1))
     batch = to_device(synthetic_batch(cfg, 1, seed=0), "cpu")
     batch["post_rots"][0, 1, 1, 2, 0] = 0.01
     with pytest.raises(ValueError, match="2-D image post-augs"):
