@@ -10,8 +10,9 @@ fallback to the CPU or to a kernel's plain version:
   build      nvcc builds the hand-written kernels (preworld_tpu_torch/csrc/)
              for sm_90a into preworld_tpu_torch/build/.
   kernel K*  each kernel against its plain PyTorch version on the card, at
-             the flagship shapes (K3 also at 256 channels), within the
-             stated tolerance; both timed.
+             the flagship shapes (K3 also at 256 channels; K7 at the
+             shapes of the per-stage bench's cost volume, and at 256
+             channels), within the stated tolerance; both timed.
   reference  a small config (flagship widths, 2 Swin blocks per stage,
              128x352 input, 2 cameras, 20x20x8 grid) runs on the card in
              bf16 through the kernels and on the CPU in f32 through the plain
@@ -56,10 +57,26 @@ fallback to the CPU or to a kernel's plain version:
              and 3 finetune steps, finite losses, the launch counts of
              SWINT_PER_REQUEST / SWINT_PER_STEP, ms per request and step,
              peak bytes, a profiler breakdown of one more request.
+  pretrain-reference  the small config's pretrain train step (render
+             losses on 512 rays and the LSS depth loss), card (bf16,
+             kernels) against CPU (f32, plain), as train-reference.
+  pretrain-flagship  `build_model` from
+             configs/preworld/preworld_7frame_pretrain.py with 38400 rays:
+             3 train steps with remat off and 1 with it on, the six losses
+             finite, a nonzero gradient on every parameter the key frame
+             and the render MLPs reach, 24 K1b and 24 K2b launches per step;
+             step time, peak memory and a profiler breakdown of one more
+             step.
+  bench-parts  the `cost_volume` and `nerf` stages of
+             `python3 -m preworld_tpu_torch.tools.bench_parts`, in-process:
+             the plain grid route against K7 through
+             `stereo_cost_volume_fused`, and the render losses of 38400 rays
+             on a 200x200x16 field, forward and gradient.
 
 Then one JSON line of per-kernel results (launches: K1-K4 from the flagship
 predict run, K1b/K2b from the train-flagship run, K5/K5b from the
-swint-flagship request and step, K6/K6b from the swin-routes run; each
+swint-flagship request and step, K6/K6b from the swin-routes run, K7 from
+the bench-parts run; each
 kernel's bound from the bytes and operations of its checked shapes), and
 last the device line {"ok": true, "device": {...}}. TF32 is off for both
 matmuls and cuDNN convolutions, so every f32 product is full f32.
@@ -110,6 +127,9 @@ KERNELS = {
     "band_window_attention_bwd": (
         "K6b", "preworld_tpu_torch/csrc/window_attn_bwd.cu",
         "preworld_tpu/ops/window_attn_pallas.py:538"),
+    "plane_sweep_cost": (
+        "K7", "preworld_tpu_torch/csrc/cost_volume.cu",
+        "preworld_tpu/ops/cost_volume_pallas.py:320"),
 }
 BWD_KERNELS = ("fused_swin_attn_block_bwd", "fused_swin_mlp_bwd",
                "fused_window_attention_bwd", "band_window_attention_bwd")
@@ -118,7 +138,8 @@ BWD_KERNELS = ("fused_swin_attn_block_bwd", "fused_swin_mlp_bwd",
 # (1 ulp = 2^-8 relative) after bf16-rounded intermediates (LN output, qkv,
 # probabilities, hidden) that can round the other way when the f32 sums
 # differ in order; K3 takes the same sample positions and weights in the
-# same f32 operations, only the channel sum's order differs; K4 sums f32 in
+# same f32 operations, only the channel sum's order differs (K7 as K3, from
+# grid coordinates); K4 sums f32 in
 # another order and rounds once to bf16.
 # K5/K6 write bf16 averages of v after bf16-rounded probabilities, which
 # can round the other way when the f32 score sums differ in order: a few
@@ -129,6 +150,7 @@ TOL = {
     "fused_swin_attn_block": (0.05, 0.02),
     "fused_swin_mlp": (0.05, 0.02),
     "plane_sweep_cost_hom": (1e-3, 1e-5),
+    "plane_sweep_cost": (1e-3, 1e-5),
     "bev_pool_fused": (1e-3, 1e-2),
     "fused_window_attention": (0.01, 0.02),
     "band_window_attention": (0.01, 0.02),
@@ -211,6 +233,19 @@ ROUTES_TENSOR_REL_L2 = 0.1
 # softmax over one channel is 1)
 ZERO_GRAD_PREFIXES = ("density_mlp.", "semantic_mlp.", "color_mlp.",
                       "occupancy_head.soft_w")
+# ... and those the pretrain loss never reaches (the occupancy head)
+PRETRAIN_ZERO_GRAD_PREFIXES = ("occupancy_head.",)
+PRETRAIN_LOSSES = ("loss_render_depth", "loss_render_semantic",
+                   "loss_render_color", "loss_sdf_entropy",
+                   "loss_sdf_distortion", "loss_lss_depth")
+# the per-stage bench's cost volume (tools/bench_parts.py), K7's shapes
+BENCH_CV = dict(BN=6, H=128, W=352, C=128, D=88)
+# pretrain-reference: the density head's output bias, so that the render
+# works at opacities of order 5e-3 (alpha = 1 - exp(-softplus(density +
+# shift) / 2) with shift -13.8). At the initial opacity of 1e-6 that
+# difference of two numbers near 1 keeps ~10 % in f32, and the card's bf16
+# features would move each sample's opacity at random.
+PRETRAIN_REF_DENSITY_BIAS = 9.0
 
 
 def status(phase: str, msg: str) -> None:
@@ -583,6 +618,14 @@ def flagship_geometry(cfg, device):
                              cfg.temporal_frames)
 
 
+def empty_share(cost, curr, bias: float) -> float:
+    """Share of the (pixel, plane) costs whose warp sampled nothing: those
+    equal sum_c |curr| + bias (up to the order of the channel sum)."""
+    l1 = curr.float().abs().sum(-1)[:, None]
+    return float(torch.isclose(cost, l1 + bias, rtol=0, atol=1e-2)
+                 .float().mean())
+
+
 def check_cost_volume(gen, cfg):
     """K3 at the flagship's 128 stereo channels, and at 256 (a width the
     route also sends to K3; marked `extra`: checked, left out of the
@@ -615,7 +658,35 @@ def check_cost_volume(gen, cfg):
         r.update(work(2 * BN * Hc * Wc * C * 2 + hom.numel() * 4
                       + BN * D * Hc * Wc * 4, 11 * BN * D * Hc * Wc * C,
                       F32_FLOPS), extra=C != 128)
-        r["empty_sample_share"] = float((got > 5.0 - 1e-6).float().mean())
+        r["empty_sample_share"] = empty_share(got, curr, 5.0)
+        rows.append(r)
+        del prev, curr, got
+    return rows
+
+
+def check_cost_volume_grid(gen):
+    """K7 at the per-stage bench's shapes and warp (128 channels), and at
+    256 channels (marked `extra`)."""
+    from preworld_tpu_torch.ops import cost_volume_pallas as k7
+    from preworld_tpu_torch.tools.bench_parts import smooth_warp_grid
+
+    BN, H, W, D = (BENCH_CV[k] for k in ("BN", "H", "W", "D"))
+    grid = torch.from_numpy(smooth_warp_grid(BN, D, H, W)).cuda()
+    rows = []
+    for C in (BENCH_CV["C"], 256):
+        prev = randn(gen, (BN, H, W, C), 1.0, torch.bfloat16)
+        curr = randn(gen, (BN, H, W, C), 1.0, torch.bfloat16)
+        args = (prev, curr, grid, 5.0)
+        got = k7.plane_sweep_cost(*args)
+        r = compare("plane_sweep_cost", got, k7.plane_sweep_cost_plain(*args))
+        r["ms"] = cuda_ms(lambda: k7.plane_sweep_cost(*args))
+        r["plain_ms"] = cuda_ms(lambda: k7.plane_sweep_cost_plain(*args))
+        r["shape"] = f"BN{BN} D{D} {H}x{W}x{C}"
+        # as K3, and the grid read once
+        r.update(work(2 * BN * H * W * C * 2 + grid.numel() * 4
+                      + BN * D * H * W * 4, 11 * BN * D * H * W * C,
+                      F32_FLOPS), extra=C != BENCH_CV["C"])
+        r["empty_sample_share"] = empty_share(got, curr, 5.0)
         rows.append(r)
         del prev, curr, got
     return rows
@@ -841,16 +912,21 @@ def one_train_step(model, batch, device, ema_updates=10560):
     return {k: float(v) for k, v in metrics.items()}, grads
 
 
-def check_train_reference():
-    """The reference config's train step, card (bf16, kernels) against CPU
-    (f32, plain), from the same weights, batch and masks."""
+def check_train_reference(name="train-reference", density_bias=None, **over):
+    """The reference config's train step (finetune unless `over` says
+    otherwise), card (bf16, kernels) against CPU (f32, plain), from the same
+    weights, batch and masks; `density_bias` sets the density head's output
+    bias."""
     from preworld_tpu_torch.data import synthetic_batch
     from preworld_tpu_torch.models import PreWorld
 
-    cfg = reference_config(num_cams=6, if_render=False,
-                           use_lss_depth_loss=False)
+    cfg = reference_config(**dict(dict(num_cams=6, if_render=False,
+                                       use_lss_depth_loss=False), **over))
     ref = PreWorld(cfg)
     init_weights(ref, seed=1, fan_in=True)
+    if density_bias is not None:
+        with torch.no_grad():
+            ref.density_mlp.Dense_1.bias.fill_(density_bias)
     state = {k: v.clone() for k, v in ref.state_dict().items()}
     card = PreWorld(dataclasses.replace(cfg, dtype=torch.bfloat16))
     card.load_state_dict(state)
@@ -860,7 +936,7 @@ def check_train_reference():
     got, gg = one_train_step(card, batch, "cuda")
     for k, v in got.items():
         if not math.isfinite(v):
-            raise AssertionError(f"train-reference: {k} = {v} on the card")
+            raise AssertionError(f"{name}: {k} = {v} on the card")
     calib = PreWorld(cfg)
     calib.load_state_dict({k: v.to(torch.bfloat16).to(v.dtype)
                            if v.is_floating_point() else v
@@ -897,13 +973,18 @@ def check_train_reference():
           and global_cos >= calib_global - COS_MARGIN
           and median_cos >= calib_median - COS_MARGIN)
     if not ok:
-        raise AssertionError(f"train-reference: card vs CPU {res}")
+        raise AssertionError(f"{name}: card vs CPU {res}")
     return res
 
 
-def run_train_flagship():
-    """The flagship finetune step from its config file: TRAIN_STEPS steps
-    with remat off, one with remat on, one more profiled."""
+def run_train_flagship(
+        config="configs/preworld/preworld_7frame_finetune.py",
+        zero_grad=ZERO_GRAD_PREFIXES, num_rays=512, losses=None,
+        name="train-flagship"):
+    """The flagship train step from its config file (the finetune stage
+    unless told otherwise): TRAIN_STEPS steps with remat off, one with remat
+    on, one more profiled. `zero_grad`: prefixes of the parameters the loss
+    does not reach; `losses`: keys the metrics must hold."""
     from preworld_tpu_torch.data import synthetic_batch, to_device
     from preworld_tpu_torch.ops import _cuda
     from preworld_tpu_torch.train import (
@@ -914,18 +995,18 @@ def run_train_flagship():
     )
     from preworld_tpu_torch.utils import Config
 
-    conf = Config.fromfile("configs/preworld/preworld_7frame_finetune.py")
+    conf = Config.fromfile(config)
     model = build_model(conf)
     cfg = model.cfg
     model.cfg = dataclasses.replace(cfg, remat=False)
     init_weights(model, seed=0, fan_in=True)
-    model.cuda()
     init = {n: p.detach().clone() for n, p in model.named_parameters()}
     state = create_train_state(model, make_optimizer(model.parameters()),
                                conf["ema"]["init_updates"])
     step = make_train_step(conf["ema"]["decay"])
     gen = torch.Generator().manual_seed(0)
-    batches = [synthetic_batch(cfg, 1, seed=s, with_labels=True)
+    batches = [synthetic_batch(cfg, 1, seed=s, with_labels=True,
+                               num_rays=num_rays)
                for s in range(TRAIN_STEPS + 2)]
 
     def run(i):
@@ -938,7 +1019,10 @@ def run_train_flagship():
         ms = (time.perf_counter() - t0) * 1e3
         for k, v in metrics.items():
             if not math.isfinite(v):
-                raise AssertionError(f"train-flagship step {i}: {k} = {v}")
+                raise AssertionError(f"{name} step {i}: {k} = {v}")
+        missing = set(losses or ()) - set(metrics)
+        if missing:
+            raise AssertionError(f"{name} step {i}: no {sorted(missing)}")
         return metrics, ms, dict(_cuda.launches)
 
     torch.cuda.synchronize()
@@ -947,18 +1031,18 @@ def run_train_flagship():
     peak = torch.cuda.max_memory_allocated()
     for i, (_, _, launches) in enumerate(steps):
         if launches != EXPECTED_PER_STEP:
-            raise AssertionError(f"train-flagship step {i}: launches "
+            raise AssertionError(f"{name} step {i}: launches "
                                  f"{launches}, expected {EXPECTED_PER_STEP}")
     dead = [n for n, p in model.named_parameters()
-            if not n.startswith(ZERO_GRAD_PREFIXES)
+            if not n.startswith(zero_grad)
             and (p.grad is None or not bool((p.grad != 0).any()))]
     if dead:
-        raise AssertionError(f"train-flagship: no gradient on {len(dead)} "
-                             f"parameters the key frame reaches: {dead[:8]}")
+        raise AssertionError(f"{name}: no gradient on {len(dead)} "
+                             f"parameters the loss reaches: {dead[:8]}")
     ema_move = max(float((state.ema_params[n] - init[n]).abs().max())
                    for n in init)
     if not ema_move > 0:
-        raise AssertionError("train-flagship: the EMA did not move")
+        raise AssertionError(f"{name}: the EMA did not move")
 
     model.cfg = dataclasses.replace(cfg, remat=True)
     torch.cuda.synchronize()
@@ -966,7 +1050,7 @@ def run_train_flagship():
     remat_metrics, remat_ms, remat_launches = run(TRAIN_STEPS)
     remat_peak = torch.cuda.max_memory_allocated()
     if remat_launches != EXPECTED_PER_STEP_REMAT:
-        raise AssertionError(f"train-flagship remat: launches "
+        raise AssertionError(f"{name} remat: launches "
                              f"{remat_launches}, expected "
                              f"{EXPECTED_PER_STEP_REMAT}")
     model.cfg = dataclasses.replace(cfg, remat=False)
@@ -1080,7 +1164,6 @@ def run_swint_flagship():
         raise AssertionError(f"swint-flagship: routes {routes}, K3 "
                              f"{model.stereo_on_plane_sweep}")
     init_weights(model, seed=0, fan_in=True)
-    model.cuda()
     sx, sy, sz = (int(v) for v in cfg.grid.size)
 
     def timed(fn, expected, what):
@@ -1142,6 +1225,39 @@ def run_swint_flagship():
             "params": sum(p.numel() for p in model.parameters())}
 
 
+def run_bench_parts():
+    """The `cost_volume` and `nerf` stages of the port's per-stage bench,
+    in-process, with their kernel launches."""
+    from preworld_tpu_torch.ops import _cuda
+    from preworld_tpu_torch.tools import bench_parts
+
+    dev = torch.device("cuda")
+    _cuda.reset_launches()
+    rows = bench_parts.bench_cost_volume(dev) + bench_parts.bench_nerf(dev)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.launches)
+    # the render's resetting mask scan alone (S - 1 = 416 steps over the
+    # rays), on the nerf stage's 38400 rays
+    from preworld_tpu_torch.models.nerf_head import NerfHeadConfig
+    from preworld_tpu_torch.ops.render import cumdist_mask, sample_ray_points
+
+    spec = NerfHeadConfig().spec
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pts, inner, _ = sample_ray_points(
+        randn(gen, (38400, 3)), randn(gen, (38400, 3)),
+        torch.eye(3, device="cuda"), spec)
+    cumdist_ms = cuda_ms(lambda: cumdist_mask(pts, inner, spec))
+    # 1 warm-up and 4 timed cost-volume calls, each one K7 launch
+    expected = dict.fromkeys(KERNELS, 0)
+    expected["plane_sweep_cost"] = 5
+    if launches != expected:
+        raise AssertionError(f"bench-parts: launches {launches}, expected "
+                             f"{expected}")
+    return {"stages": rows, "launches": launches,
+            "cumdist_mask_ms": cumdist_ms,
+            "samples_per_ray": spec.num_samples}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1169,6 +1285,7 @@ def main() -> int:
     for ln in ptxas:
         print("  " + ln)
 
+    from preworld_tpu_torch.data import tiny_nerf_config
     from preworld_tpu_torch.models import PreWorldConfig
 
     # The phases after the build are independent: each failure is printed
@@ -1191,6 +1308,8 @@ def main() -> int:
     rows.update(phase("kernel K1/K2", lambda: check_swin(gen)) or {})
     rows["plane_sweep_cost_hom"] = phase(
         "kernel K3", lambda: check_cost_volume(gen, flag_cfg))
+    rows["plane_sweep_cost"] = phase(
+        "kernel K7", lambda: check_cost_volume_grid(gen))
     rows["bev_pool_fused"] = [
         phase("kernel K4", lambda: check_bev_pool(gen, flag_cfg))]
     rows.update(phase("kernel K5/K6", lambda: check_window_attn(gen)) or {})
@@ -1206,6 +1325,8 @@ def main() -> int:
                 failures.append(f"kernel {label} {r['shape']}")
             lib = (f", F.scaled_dot_product_attention {r['library_ms']:.3f} ms"
                    if "library_ms" in r else "")
+            if "empty_sample_share" in r:
+                lib += f"; empty samples {r['empty_sample_share']:.4f}"
             status(f"kernel {label}",
                    f"{'ok' if ok else 'MISMATCH'} {r['shape']}"
                    f"{' (extra width)' if r.get('extra') else ''}: max abs err "
@@ -1247,11 +1368,21 @@ def main() -> int:
     swint = dict(routes=[("window", False)] * 2 + [("block", True)] * 2,
                  swin_embed_dims=SWINT["embed_dims"],
                  swin_num_heads=SWINT["num_heads"])
+    pretrain = dict(if_post_finetune=False, if_render=True,
+                    use_lss_depth_loss=True, nerf=tiny_nerf_config())
     for name, fn in (("train-reference", check_train_reference),
                      ("train-flagship", run_train_flagship),
                      ("swin-routes", run_swin_routes),
                      ("swint-reference", lambda: check_reference(**swint)),
-                     ("swint-flagship", run_swint_flagship)):
+                     ("swint-flagship", run_swint_flagship),
+                     ("pretrain-reference", lambda: check_train_reference(
+                         "pretrain-reference", PRETRAIN_REF_DENSITY_BIAS,
+                         **pretrain)),
+                     ("pretrain-flagship", lambda: run_train_flagship(
+                         "configs/preworld/preworld_7frame_pretrain.py",
+                         PRETRAIN_ZERO_GRAD_PREFIXES, 38400, PRETRAIN_LOSSES,
+                         "pretrain-flagship")),
+                     ("bench-parts", run_bench_parts)):
         runs[name] = phase(name, fn)
         if runs[name] is not None:
             status(name, "ok " + json.dumps(runs[name]))
@@ -1264,7 +1395,8 @@ def main() -> int:
     launch_runs = {"fused_swin_attn_block_bwd": runs["train-flagship"],
                    "fused_swin_mlp_bwd": runs["train-flagship"],
                    "band_window_attention": runs["swin-routes"],
-                   "band_window_attention_bwd": runs["swin-routes"]}
+                   "band_window_attention_bwd": runs["swin-routes"],
+                   "plane_sweep_cost": runs["bench-parts"]}
     launches = {name: launch_runs.get(name, runs["flagship"])["launches"][name]
                 for name in KERNELS}
     launches["fused_window_attention"] = \

@@ -1,4 +1,4 @@
-"""PyTorch / CUDA port of preworld_tpu (inference and finetune slices).
+"""PyTorch / CUDA port of preworld_tpu (inference and both train stages).
 
 Mirrors the JAX package's layout (`ops/`, `geometry/`, `models/`, `data/`,
 `losses/`, `train/`, `utils/`). Imports torch and numpy only; the

@@ -1,10 +1,10 @@
 """Synthetic batches (numpy) for tests and the card smoke run.
 
-Counterpart of `preworld_tpu/data/synthetic.py` less the render rays and
-the trajectory keys: for the same config and seed, `synthetic_batch`
-returns arrays byte-identical to the JAX package's `synthetic_batch`, with
-the training keys `voxel_semantics`, `mask_camera` and `gt_depth` when
-`with_labels`.
+Counterpart of `preworld_tpu/data/synthetic.py` less the trajectory keys:
+for the same config, seed and ray count, `synthetic_batch` returns arrays
+byte-identical to the JAX package's `synthetic_batch`, with the training
+keys `voxel_semantics`, `mask_camera`, `gt_depth` and the render rays
+`rays` when `with_labels`.
 """
 
 from __future__ import annotations
@@ -15,22 +15,33 @@ import numpy as np
 import torch
 
 from ..geometry.frustum import GridConfig
+from ..geometry.rays import RAY_DIM
+from ..models.nerf_head import NerfHeadConfig
 from ..models.preworld import PreWorldConfig
+from ..ops.render import RaySamplingSpec
 
 
 def tiny_config(input_size: Tuple[int, int] = (64, 128), num_cams: int = 2,
                 grid: Optional[GridConfig] = None, **overrides) -> PreWorldConfig:
-    """A miniature PreWorldConfig (tiny backbone, small grid), the same
-    sizes as the JAX package's `tiny_config`."""
+    """A miniature PreWorldConfig (tiny backbone, small grid, short rays),
+    the same sizes as the JAX package's `tiny_config`."""
     grid = grid or GridConfig(
         x=(-8.0, 8.0, 0.8), y=(-8.0, 8.0, 0.8), z=(-1.0, 5.4, 0.8),
         depth=(1.0, 9.0, 0.5),
     )
     defaults = dict(grid=grid, input_size=input_size, num_cams=num_cams,
                     backbone="tiny", neck_out_channels=64,
-                    num_trans_channels=16, out_dim=16)
+                    num_trans_channels=16, out_dim=16,
+                    nerf=tiny_nerf_config())
     defaults.update(overrides)
     return PreWorldConfig(**defaults)
+
+
+def tiny_nerf_config() -> NerfHeadConfig:
+    """`tiny_config`'s render head: rays over the 16 m x 16 m grid."""
+    spec = RaySamplingSpec(point_cloud_range=(-8.0, -8.0, -1.0, 8.0, 8.0, 5.4),
+                           radius=7.0, step_size=0.5, world_len=20)
+    return NerfHeadConfig(spec=spec, max_depth=10.0)
 
 
 def camera_rig(num_cams: int, input_size) -> Dict[str, np.ndarray]:
@@ -53,12 +64,13 @@ def camera_rig(num_cams: int, input_size) -> Dict[str, np.ndarray]:
 
 
 def synthetic_batch(cfg: PreWorldConfig, batch_size: int = 1,
-                    seed: int = 0, with_labels: bool = False
-                    ) -> Dict[str, np.ndarray]:
+                    seed: int = 0, with_labels: bool = False,
+                    num_rays: int = 512) -> Dict[str, np.ndarray]:
     """Random-but-consistent inputs: normal images, the camera ring, an
     ego driving forward 0.4 m per frame back in time, identity post-augs
     and BEV augmentation; with `with_labels`, uniform random occupancy
-    classes, a 70 % camera mask and a 10 % sparse lidar depth map."""
+    classes, a 70 % camera mask, a 10 % sparse lidar depth map and
+    `num_rays` render rays per sample."""
     rng = np.random.default_rng(seed)
     H, W = cfg.input_size
     B, T, N = batch_size, cfg.num_frames, cfg.num_cams
@@ -87,6 +99,21 @@ def synthetic_batch(cfg: PreWorldConfig, batch_size: int = 1,
     batch["gt_depth"] = np.where(
         rng.uniform(size=(B, N, H, W)) > 0.9,
         rng.uniform(1.5, 20.0, (B, N, H, W)), 0.0).astype(np.float32)
+    rays = np.zeros((B, num_rays, RAY_DIM), np.float32)
+    rays[..., 0] = rng.integers(0, W, (B, num_rays))
+    rays[..., 1] = rng.integers(0, H, (B, num_rays))
+    rays[..., 2] = rng.uniform(1.0, 9.0, (B, num_rays))  # depth
+    # semantic: only the num_classes - 1 semantic classes reach a pixel
+    rays[..., 3] = rng.integers(0, cfg.num_classes - 1, (B, num_rays))
+    origins = rng.uniform(-1.0, 1.0, (B, num_rays, 3))
+    origins[..., 2] = 1.5
+    dirs = rng.normal(size=(B, num_rays, 3))
+    dirs[..., 2] *= 0.1
+    rays[..., 4:7] = origins
+    rays[..., 7:10] = dirs
+    rays[..., 10:13] = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+    rays[..., 13:16] = rng.uniform(0, 1, (B, num_rays, 3))
+    batch["rays"] = rays
     return batch
 
 

@@ -1,9 +1,9 @@
 """Camera-aware DepthNet with ASPP, and the stereo warp geometry.
 
 Counterpart of `preworld_tpu/models/depthnet.py`: `ASPP`, `DepthNet`,
-`gen_stereo_grid`, `gen_stereo_homography` and the plain
-`stereo_cost_volume` (grid_sample with align_corners=True, zeros padding).
-Channel-last.
+`gen_stereo_grid`, `gen_stereo_homography`, the plain
+`stereo_cost_volume` (grid_sample with align_corners=True, zeros padding)
+and `stereo_cost_volume_fused` (the same from kernel K7). Channel-last.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.cost_volume_pallas import plane_sweep_cost
 from .layers import (
     BasicBlock,
     BatchNorm1d,
@@ -172,6 +173,16 @@ def stereo_cost_volume(prev_feat, curr_feat, grid, bias: float,
         invalid = warped[:, max(C - 4, 0)] == 0.0
         costs.append(diff + invalid.to(diff.dtype) * bias)
     return torch.softmax(-torch.cat(costs, dim=1), dim=1)
+
+
+def stereo_cost_volume_fused(prev_feat, curr_feat, grid, bias: float):
+    """`stereo_cost_volume` through kernel K7 (`ops.cost_volume_pallas.
+    plane_sweep_cost`): softmax(-cost) over D, in `curr_feat`'s dtype.
+    prev/curr (B*N, H, W, C) bf16 on the card; grid (B*N, D*H, W, 2), taken
+    in f32."""
+    cost = plane_sweep_cost(prev_feat.contiguous(), curr_feat.contiguous(),
+                            grid.float().contiguous(), bias=float(bias))
+    return torch.softmax(-cost, dim=1).to(curr_feat.dtype)
 
 
 class DepthNet(nn.Module):

@@ -1,16 +1,18 @@
-"""PreWorld: the occupancy world model, inference and finetune slices.
+"""PreWorld: the occupancy world model, inference and both train stages.
 
 Counterpart of `preworld_tpu/models/preworld.py`: `PreWorldConfig`,
 `TinyBackbone`, and `PreWorld.extract_voxel_feat` / `predict` /
 `predict_attributes` / `occupancy_logits` / `loss` (the 3-frame stereo loop
-with `align_after_vt=False`). `loss` covers the `if_post_finetune` branch
-(the four voxel losses); the render head and the LSS depth loss of the
-pretrain stage, streaming and `align_after_vt` are not ported yet.
+with `align_after_vt=False`). `loss` covers the finetune stage's four voxel
+losses (`if_post_finetune`), the pretrain stage's render losses
+(`if_render`, `models/nerf_head.py`) and its LSS depth loss
+(`use_lss_depth_loss`); streaming and `align_after_vt` are not ported yet.
 
 Batch layout (torch tensors on one device, channel-last):
   imgs (B, T, N, H, W, 3); sensor2egos, ego2globals (B, T, N, 4, 4);
   intrins, post_rots (B, T, N, 3, 3); post_trans (B, T, N, 3); bda (B, 3, 3);
-  voxel_semantics (B, X, Y, Z) int (training).
+  training: voxel_semantics (B, X, Y, Z) int; rays (B, R, 16) f32
+  (`geometry.rays`); gt_depth (B, N, H, W) f32.
 Parameters are f32. The backbone, necks, view transformer and BEV encoder
 compute in `cfg.dtype` (weights cast at use, `models/layers.py`);
 `final_conv` and the heads compute in f32.
@@ -53,6 +55,7 @@ from ..losses.voxel import (
 )
 from .fpn import FPN_LSS, LSSFPN3D
 from .layers import ConvNormAct, MlpSequence, recompute_context
+from .nerf_head import NerfHeadConfig, nerf_head_losses
 from .occ_head import OccHead
 from .resnet import CustomResNet3D
 from .swin import SwinTransformer
@@ -61,14 +64,16 @@ from .view_transformer import (
     LSSViewTransformer,
     check_planar_post_aug,
     compute_stereo_cost_volume,
+    depth_bce_loss,
     get_mlp_input,
 )
 
 
 @dataclasses.dataclass(frozen=True)
 class PreWorldConfig:
-    """The JAX package's `PreWorldConfig` fields and defaults, less the
-    render head's `nerf` settings; `dtype` is a torch dtype."""
+    """The JAX package's `PreWorldConfig` fields and defaults; `dtype` is a
+    torch dtype, and `nerf` the port's `NerfHeadConfig` (the JAX one less
+    its two TPU gather fields)."""
 
     grid: GridConfig = GridConfig()
     input_size: Tuple[int, int] = (512, 1408)
@@ -98,6 +103,7 @@ class PreWorldConfig:
     weight_voxel_lovasz: float = 1.0
     use_focal_loss: bool = True
     balance_cls_weight: bool = True
+    nerf: NerfHeadConfig = NerfHeadConfig()
     # recompute the backbone / view transformer / 3-D ResNet activations in
     # the backward instead of keeping them
     remat: bool = False
@@ -325,16 +331,17 @@ class PreWorld(nn.Module):
 
     def loss(self, batch: Dict[str, torch.Tensor],
              generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        """Finetune-stage loss dict (`if_post_finetune`): focal (or CE),
-        semantic scal, geometric scal and Lovasz on the occupancy logits,
-        each times its weight. Call in train mode."""
+        """Stage-dependent loss dict, each loss times its weight. Call in
+        train mode.
+
+        if_post_finetune: focal (or CE), semantic scal, geometric scal and
+        Lovasz on the occupancy logits. if_render: the render head's losses
+        on the density, semantic and colour fields (f32) along
+        `batch["rays"]`. use_lss_depth_loss: BCE of the key frame's depth
+        against `batch["gt_depth"]`."""
         c = self.cfg
-        if c.if_render or c.use_lss_depth_loss:
-            raise NotImplementedError(
-                "the render head and the LSS depth loss (pretrain stage) are "
-                "not ported: set if_render=False, use_lss_depth_loss=False")
-        voxel_feats, _ = self.extract_voxel_feat(batch, train=True,
-                                                 generator=generator)
+        voxel_feats, depth = self.extract_voxel_feat(batch, train=True,
+                                                     generator=generator)
         losses: Dict[str, torch.Tensor] = {}
         if c.if_post_finetune:
             logits = self.occupancy_logits(voxel_feats)
@@ -352,6 +359,15 @@ class PreWorld(nn.Module):
                 geo_scal_loss(logits, target, non_empty_idx=c.empty_idx)
             losses["loss_voxel_lovasz"] = c.weight_voxel_lovasz * \
                 lovasz_softmax_loss(logits, target, ignore_index=c.empty_idx)
+        if c.if_render:
+            density, semantic, color = self.predict_attributes(voxel_feats)
+            losses.update(nerf_head_losses(density, semantic, color,
+                                           batch["rays"], batch["bda"],
+                                           c.nerf))
+        if c.use_lss_depth_loss:
+            losses["loss_lss_depth"] = depth_bce_loss(
+                depth, batch["gt_depth"], self.view_transformer.downsample,
+                c.grid, weight=c.depth_loss_weight)
         return losses
 
     @torch.no_grad()

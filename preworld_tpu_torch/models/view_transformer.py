@@ -1,7 +1,9 @@
 """LSS view transformer: image features -> voxel features via lift-splat.
 
 Counterpart of `preworld_tpu/models/view_transformer.py`:
-`get_mlp_input`, `compute_stereo_cost_volume` and `LSSViewTransformer`.
+`get_mlp_input`, `compute_stereo_cost_volume`, `LSSViewTransformer` and
+the pretrain stage's depth supervision (`downsampled_gt_depth`,
+`depth_bce_loss`).
 The stereo cost volume takes the JAX package's routes by feature shape
 (`ops.cost_volume_pallas.plane_sweep_supported`): the homography path on
 kernel K3, exact for 2-D image post-augs only (`PreWorld` checks the
@@ -17,6 +19,7 @@ from typing import Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..geometry.frustum import GridConfig, frustum_pixel_indices
 from ..ops.bev_pool_pallas import bev_pool_fused
@@ -135,3 +138,38 @@ class LSSViewTransformer(nn.Module):
         pooled = bev_pool_fused(depth_bnd, feat, pool_vox, pix, nvox)
         sx, sy, sz = (int(v) for v in self.grid.size)
         return pooled.reshape(B, sz, sy, sx, self.out_channels), depth_bnd
+
+
+def downsampled_gt_depth(gt_depths, downsample: int, grid: GridConfig):
+    """Min-pool lidar depth to feature resolution, then one-hot depth bins:
+    zeros are missing (1e5 before the min-pool); bin index (d - (lo -
+    step)) / step, index 0 for invalid. gt_depths (B, N, H, W) -> (B*N*h*w,
+    D) f32."""
+    B, N, H, W = gt_depths.shape
+    D = grid.num_depth_bins
+    x = gt_depths.reshape(B * N, H // downsample, downsample, W // downsample,
+                          downsample)
+    x = x.permute(0, 1, 3, 2, 4).reshape(-1, downsample * downsample)
+    x = torch.where(x == 0.0, torch.full_like(x, 1e5), x)
+    x = x.amin(dim=-1)
+    lo, _, step = grid.depth
+    idx = (x - (lo - step)) / step
+    valid = (idx < D + 1) & (idx >= 0.0)
+    idx = torch.where(valid, idx, torch.zeros_like(idx)).long()
+    return F.one_hot(idx, D + 1).float()[:, 1:]
+
+
+def depth_bce_loss(depth_pred, gt_depths, downsample: int, grid: GridConfig,
+                   weight: float = 0.05):
+    """BEVDepth BCE depth supervision: depth_pred (B, N, D, Hf, Wf)
+    softmaxed, gt_depths (B, N, H, W) sparse metric depth (0 = missing).
+    Computed in f32: in bf16 the upper clamp 1 - 1e-7 rounds to 1, and a
+    confident bin on its own label would give 0 * log(0) = NaN."""
+    D = grid.num_depth_bins
+    labels = downsampled_gt_depth(gt_depths, downsample, grid)
+    preds = depth_pred.float().permute(0, 1, 3, 4, 2).reshape(-1, D)
+    fg = labels.amax(dim=1) > 0.0
+    preds = preds.clamp(1e-7, 1.0 - 1e-7)
+    bce = -(labels * torch.log(preds) + (1 - labels) * torch.log(1 - preds))
+    bce = (bce.sum(dim=1) * fg).sum()
+    return weight * bce / fg.sum().float().clamp_min(1.0)

@@ -1,9 +1,14 @@
-"""Kernel wrappers (K1-K6, K1b, K2b, K5b, K6b) and their plain PyTorch
+"""Kernel wrappers (K1-K7, K1b, K2b, K5b, K6b) and their plain PyTorch
 versions."""
 
 from .bev_pool import bev_pool
 from .bev_pool_pallas import bev_pool_fused
-from .cost_volume_pallas import plane_sweep_cost_hom, plane_sweep_cost_hom_plain
+from .cost_volume_pallas import (
+    plane_sweep_cost,
+    plane_sweep_cost_hom,
+    plane_sweep_cost_hom_plain,
+    plane_sweep_cost_plain,
+)
 from .swin_block_pallas import (
     fused_swin_attn_block,
     fused_swin_attn_block_bwd,
@@ -42,6 +47,8 @@ __all__ = [
     "fused_window_attention",
     "fused_window_attention_bwd",
     "fused_window_attention_vjp",
+    "plane_sweep_cost",
     "plane_sweep_cost_hom",
     "plane_sweep_cost_hom_plain",
+    "plane_sweep_cost_plain",
 ]

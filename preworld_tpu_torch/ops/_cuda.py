@@ -36,7 +36,8 @@ LINK_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-shared"]
 KERNELS = ("fused_swin_attn_block", "fused_swin_mlp", "plane_sweep_cost_hom",
            "bev_pool_fused", "fused_swin_attn_block_bwd", "fused_swin_mlp_bwd",
            "fused_window_attention", "band_window_attention",
-           "fused_window_attention_bwd", "band_window_attention_bwd")
+           "fused_window_attention_bwd", "band_window_attention_bwd",
+           "plane_sweep_cost")
 launches = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
@@ -46,6 +47,7 @@ _SIGNATURES = {
     "pw_swin_attn_block": [_P] * 13 + [_I] * 9 + [_F, _P],
     "pw_swin_mlp": [_P] * 10 + [_I] * 3 + [_P],
     "pw_plane_sweep_cost_hom": [_P] * 4 + [_I] * 5 + [_F, _P],
+    "pw_plane_sweep_cost_grid": [_P] * 4 + [_I] * 5 + [_F, _P],
     "pw_bev_pool_intervals": [_P] * 5 + [_I] * 2 + [_P],
     "pw_swin_attn_block_bwd": [_P] * 23 + [_I] * 9 + [_F, _P],
     "pw_swin_attn_block_bwd_part_elems": [_I] * 6,

@@ -1,4 +1,5 @@
-"""Finetune training: config -> model, optimizer, EMA and the train step."""
+"""Training (pretrain and finetune): config -> model, optimizer, EMA and the
+train step."""
 
 from .builder import build_model
 from .train_state import (

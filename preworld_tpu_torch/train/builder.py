@@ -2,9 +2,10 @@
 
 Counterpart of `preworld_tpu/train/builder.py::build_model`: the same config
 tree (a `utils.config.Config` read from `configs/`) becomes the port's
-`PreWorldConfig`, with the JAX package's defaults for every missing key.
-Only `type="PreWorld"` is ported; the render head's `nerf_head` settings
-are not read (the pretrain stage is not ported).
+`PreWorldConfig`, with the JAX package's defaults for every missing key,
+the render head's `nerf_head` dict included (`build_nerf_config`). Only
+`type="PreWorld"` is ported. The model is built on the card unless the
+caller asks for another device.
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ from typing import Any, Dict
 import torch
 
 from ..geometry.frustum import GridConfig
+from ..models.nerf_head import NerfHeadConfig
 from ..models.preworld import PreWorld, PreWorldConfig
+from ..ops.render import RaySamplingSpec
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -24,14 +27,44 @@ def build_grid_config(grid_cfg: Dict[str, Any]) -> GridConfig:
                       z=tuple(grid_cfg["z"]), depth=tuple(grid_cfg["depth"]))
 
 
-def build_model(cfg) -> PreWorld:
-    """cfg: a `utils.Config` with model / grid_config / data_config."""
+def build_nerf_config(nerf_cfg: Dict[str, Any],
+                      world_len: int) -> NerfHeadConfig:
+    """The JAX `build_nerf_config` less the TPU gather fields `table_dtype`
+    and `bwd_live_cap`, which the port does not read."""
+    pcr = tuple(nerf_cfg.get("point_cloud_range", (-40, -40, -1, 40, 40, 5.4)))
+    spec = RaySamplingSpec(
+        point_cloud_range=pcr,
+        radius=float(nerf_cfg.get("radius", 39)),
+        step_size=float(nerf_cfg.get("step_size", 0.5)),
+        world_len=world_len,
+    )
+    return NerfHeadConfig(
+        spec=spec,
+        use_depth_sup=bool(nerf_cfg.get("use_depth_sup", True)),
+        weight_depth=float(nerf_cfg.get("weight_depth", 1.0)),
+        weight_semantic=float(nerf_cfg.get("weight_semantic", 1.0)),
+        weight_color=float(nerf_cfg.get("weight_color", 1.0)),
+        weight_entropy_last=float(nerf_cfg.get("weight_entropy_last", 0.01)),
+        weight_distortion=float(nerf_cfg.get("weight_distortion", 0.01)),
+        fast_color_thres=float(nerf_cfg.get("fast_color_thres", 1e-7)),
+        balance_cls_weight=bool(nerf_cfg.get("balance_cls_weight", True)),
+        max_depth=float(nerf_cfg.get("max_depth", 52.0)),
+        variance_focus=float(nerf_cfg.get("variance_focus", 0.85)),
+        ray_chunk=int(nerf_cfg.get("ray_chunk", 0)),
+    )
+
+
+def build_model(cfg, device="cuda") -> PreWorld:
+    """cfg: a `utils.Config` with model / grid_config / data_config. The
+    model's parameters and buffers land on `device` (the card by default;
+    pass "cpu" for the CPU)."""
     m = cfg["model"]
     if m.get("type", "PreWorld") != "PreWorld":
         raise NotImplementedError(f"model type {m['type']!r} is not ported")
     swin = m.get("swin", {})
+    grid = build_grid_config(cfg["grid_config"])
     return PreWorld(PreWorldConfig(
-        grid=build_grid_config(cfg["grid_config"]),
+        grid=grid,
         input_size=tuple(cfg["data_config"]["input_size"]),
         num_cams=int(cfg["data_config"]["Ncams"]),
         temporal_frames=int(m.get("temporal_frames", 2)),
@@ -58,6 +91,7 @@ def build_model(cfg) -> PreWorld:
         weight_voxel_geo_scal=float(m.get("weight_voxel_geo_scal", 1.0)),
         weight_voxel_lovasz=float(m.get("weight_voxel_lovasz", 1.0)),
         use_focal_loss=bool(m.get("use_focal_loss", True)),
+        nerf=build_nerf_config(m.get("nerf_head", {}), int(grid.size[0])),
         remat=bool(m.get("remat", False)),
         dtype=DTYPES[m.get("dtype", "float32")],
-    ))
+    )).to(device)

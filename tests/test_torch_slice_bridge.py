@@ -37,9 +37,11 @@ SWIN = dict(backbone="swin", swin_embed_dims=16, swin_depths=(1, 1, 1, 1),
             swin_num_heads=(1, 2, 4, 8), swin_window=4)
 HEAD_FLAGS = dict(if_post_finetune=True, if_render=False,
                   use_lss_depth_loss=False)
-# JAX PreWorldConfig fields that only the pretrain stage's render head
-# reads; the port adds them with that stage
-TRAINING_FIELDS = {"nerf"}
+# JAX PreWorldConfig fields the port leaves out
+TRAINING_FIELDS = set()
+# JAX NerfHeadConfig fields that tune the TPU corner-table gather, whose
+# result they leave unchanged; the port samples with F.grid_sample
+TPU_NERF_FIELDS = {"table_dtype", "bwd_live_cap"}
 
 
 def _heads(m, b):
@@ -165,10 +167,24 @@ def test_configs_keep_jax_fields_and_defaults():
     port_fields = {f.name for f in dataclasses.fields(PreWorldConfig)}
     assert port_fields == jax_fields - TRAINING_FIELDS
     jdef, pdef = JaxPreWorldConfig(), PreWorldConfig()
-    for f in port_fields - {"grid", "dtype"}:
+    for f in port_fields - {"grid", "dtype", "nerf"}:
         assert getattr(pdef, f) == getattr(jdef, f), f
     assert pdef.dtype == torch.float32 and jdef.dtype == jnp.float32
     assert pdef.num_frames == jdef.num_frames
+    nerf_fields = {f.name for f in dataclasses.fields(jdef.nerf)}
+    assert {f.name for f in dataclasses.fields(pdef.nerf)} == \
+        nerf_fields - TPU_NERF_FIELDS
+    for f in nerf_fields - TPU_NERF_FIELDS - {"spec"}:
+        assert getattr(pdef.nerf, f) == getattr(jdef.nerf, f), f
+    assert dataclasses.asdict(pdef.nerf.spec) == dataclasses.asdict(
+        jdef.nerf.spec)
+    spec, jspec = pdef.nerf.spec, jdef.nerf.spec
+    for prop in ("bg_len", "num_inner", "num_outer", "num_samples",
+                 "act_shift", "dist_thres"):
+        assert getattr(spec, prop) == getattr(jspec, prop), prop
+    for prop in ("scene_center", "t_midpoints", "xyz_min", "xyz_max"):
+        np.testing.assert_array_equal(getattr(spec, prop),
+                                      getattr(jspec, prop), err_msg=prop)
 
 
 def test_port_imports_without_jax():
@@ -190,4 +206,22 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 29
+    assert int(out.stdout.strip()) >= 35
+
+
+def test_bench_parts_stages_run_on_the_cpu():
+    """The port's per-stage bench at small shapes with `--device cpu`
+    semantics: each stage row under the JAX tool's keys, a positive time;
+    no card is an error, never a fallback."""
+    from preworld_tpu_torch.tools import bench_parts
+
+    cpu = torch.device("cpu")
+    rows = bench_parts.bench_cost_volume(cpu, BN=1, H=8, W=32, C=128, D=4)
+    rows += bench_parts.bench_nerf(cpu, R=32, X=8, Y=8, Z=4)
+    assert [r["stage"] for r in rows] == [
+        "cost_volume_plain", "cost_volume_fused", "nerf_render_fwd",
+        "nerf_render_bwd"]
+    assert all(r["ms"] > 0 for r in rows)
+    assert bench_parts.card_line(cpu) == "cpu"
+    if not torch.cuda.is_available():
+        assert bench_parts.main(["cost_volume"]) == 2

@@ -142,8 +142,9 @@ def test_bf16_model_keeps_f32_params_that_adamw_moves():
     "preworld_nuplan_pretrain"])
 def test_config_and_build_model_match_jax(name):
     """The port's copy of `Config.fromfile` reads the same tree, and
-    `build_model` gives the JAX builder's config field for field (the
-    render head's `nerf` aside; dtype by name)."""
+    `build_model` (on the CPU) gives the JAX builder's config field for
+    field: the render head's `nerf` on every field the two share, its
+    sampling spec whole; dtype by name."""
     from preworld_tpu.train.builder import build_model as jax_build_model
     from preworld_tpu.utils.config import Config as JaxConfig
     from preworld_tpu_torch.train import build_model
@@ -152,24 +153,32 @@ def test_config_and_build_model_match_jax(name):
     path = f"configs/preworld/{name}.py"
     conf = Config.fromfile(path)
     assert conf.to_dict() == JaxConfig.fromfile(path).to_dict()
-    got = build_model(conf).cfg
+    model = build_model(conf, device="cpu")
+    assert next(model.parameters()).device.type == "cpu"
+    got = model.cfg
     want = jax_build_model(JaxConfig.fromfile(path)).cfg
     assert dataclasses.asdict(got.grid) == dataclasses.asdict(want.grid)
     for f in dataclasses.fields(got):
-        if f.name not in ("grid", "dtype"):
+        if f.name not in ("grid", "dtype", "nerf"):
             assert getattr(got, f.name) == getattr(want, f.name), f.name
     assert str(got.dtype).split(".")[-1] == jnp.dtype(want.dtype).name
+    assert dataclasses.asdict(got.nerf.spec) == dataclasses.asdict(
+        want.nerf.spec)
+    for f in dataclasses.fields(got.nerf):
+        if f.name != "spec":
+            assert getattr(got.nerf, f.name) == getattr(want.nerf, f.name), \
+                f.name
 
 
 @pytest.mark.parametrize("batch_size,seed", [(1, 0), (2, 3)])
 def test_synthetic_batch_labels_match_jax(batch_size, seed):
-    """The training keys, byte for byte with the JAX package's arrays (the
-    JAX batch's render rays aside)."""
+    """The training keys, the render rays among them, byte for byte with
+    the JAX package's arrays."""
     jcfg = jax_tiny_config(**FINETUNE)
     want = jax_synthetic_batch(jcfg, batch_size, seed=seed)
     got = synthetic_batch(tiny_config(**FINETUNE), batch_size, seed=seed,
                           with_labels=True)
-    assert sorted(got) == sorted(k for k in want if k != "rays")
+    assert sorted(got) == sorted(want)
     for k in got:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
