@@ -44,6 +44,10 @@ fallback to the CPU or to a kernel's plain version:
   kernel K5b/K6b  their backward kernels at the same shapes: rel-L2 per
              gradient within BWD_REL_L2, bit-identical over two runs; timed
              like the forward (SDPA forward + backward as the yardstick).
+             Then untimed cases at windows of 8x8 and 4x4 (N 64 and 16,
+             the backward's smaller warp counts) and 199 packed windows
+             (a ragged last group of windows), each W-MSA and SW-MSA,
+             under the same gates.
   swin-routes  Swin-B with `use_block_attn=False` (every stage per block on
              K6, K2 and their backward kernels) forward and backward on 6
              images at 512x1408, against the block route (K1, K2, K1b, K2b)
@@ -308,17 +312,13 @@ def bound(rows) -> tuple:
 
 def check_swin(gen):
     """K1 and K2 at one W-MSA and one SW-MSA block of every Swin-B stage."""
-    from preworld_tpu_torch.models.swin import (
-        relative_position_index,
-        shifted_window_region_ids,
-    )
+    from preworld_tpu_torch.models.swin import shifted_window_region_ids
     from preworld_tpu_torch.ops import swin_block_pallas as k1
     from preworld_tpu_torch.ops import swin_mlp_pallas as k2
 
     bf = torch.bfloat16
     ws, B = 12, 6
     N = ws * ws
-    rel_idx = torch.from_numpy(relative_position_index(ws).reshape(-1)).cuda()
     rows = {"fused_swin_attn_block": [], "fused_swin_mlp": []}
     for C, heads, Hp, Wp, H, W in SWIN_STAGES:
         x = randn(gen, (B, Hp, Wp, C))
@@ -333,9 +333,7 @@ def check_swin(gen):
         bqkv = randn(gen, (3 * C,), 0.1)
         wproj = randn(gen, (C, C), C ** -0.5, bf)
         bproj = randn(gen, (C,), 0.1)
-        table = randn(gen, ((2 * ws - 1) ** 2, heads), 0.5)
-        rel_bias = table[rel_idx].reshape(N, N, heads).permute(2, 0, 1)
-        rel_bias = rel_bias.contiguous()
+        rel_bias = window_bias(gen, ws, heads)
         for shift in (0, ws // 2):
             region = None
             if shift:
@@ -380,20 +378,23 @@ def grad_stats(got, want) -> dict:
             "rel_l2": float(err.norm() / want.norm().clamp_min(1e-30))}
 
 
-def check_backward(name, names, bwd, plain, args) -> dict:
+def check_backward(name, names, bwd, plain, args, timed=True) -> dict:
     """One backward kernel chain against its plain version on the same
-    inputs: per-gradient errors, bit-identity of two kernel runs, times."""
+    inputs: per-gradient errors, bit-identity of two kernel runs, times
+    (unless `timed` is false)."""
     got = bwd(*args)
     again = bwd(*args)
     want = plain(*args)
     grads = {n: grad_stats(g, w) for n, g, w in zip(names, got, want)}
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     worst = max(g["rel_l2"] for g in grads.values())
-    return {"grads": grads, "bit_identical": same, "rel_l2": worst,
-            "max_abs_err": max(g["max_abs_err"] for g in grads.values()),
-            "ok": same and worst <= BWD_REL_L2,
-            "ms": cuda_ms(lambda: bwd(*args)),
-            "plain_ms": cuda_ms(lambda: plain(*args))}
+    r = {"grads": grads, "bit_identical": same, "rel_l2": worst,
+         "max_abs_err": max(g["max_abs_err"] for g in grads.values()),
+         "ok": same and worst <= BWD_REL_L2}
+    if timed:
+        r["ms"] = cuda_ms(lambda: bwd(*args))
+        r["plain_ms"] = cuda_ms(lambda: plain(*args))
+    return r
 
 
 def check_swin_bwd(gen):
@@ -401,17 +402,13 @@ def check_swin_bwd(gen):
     (K2b) of every Swin-B stage, B = 6, cotangent N(0, 1), row scale with
     one zero and one 1/0.9; then the same at Swin-T's block-route stages
     (rows marked `extra`: checked, left out of the per-kernel sums)."""
-    from preworld_tpu_torch.models.swin import (
-        relative_position_index,
-        shifted_window_region_ids,
-    )
+    from preworld_tpu_torch.models.swin import shifted_window_region_ids
     from preworld_tpu_torch.ops import swin_block_pallas as k1
     from preworld_tpu_torch.ops import swin_mlp_pallas as k2
 
     bf = torch.bfloat16
     ws, B = 12, 6
     N = ws * ws
-    rel_idx = torch.from_numpy(relative_position_index(ws).reshape(-1)).cuda()
     rs = torch.ones(B, device="cuda")
     rs[0], rs[1] = 0.0, 1.0 / 0.9
     rows = {"fused_swin_attn_block_bwd": [], "fused_swin_mlp_bwd": []}
@@ -429,9 +426,7 @@ def check_swin_bwd(gen):
         bqkv = randn(gen, (3 * C,), 0.1)
         wproj = randn(gen, (C, C), C ** -0.5, bf)
         bproj = randn(gen, (C,), 0.1)
-        table = randn(gen, ((2 * ws - 1) ** 2, heads), 0.5)
-        rel_bias = table[rel_idx].reshape(N, N, heads).permute(2, 0, 1)
-        rel_bias = rel_bias.contiguous()
+        rel_bias = window_bias(gen, ws, heads)
         for shift in (0, ws // 2):
             region = None
             if shift:
@@ -477,26 +472,72 @@ def window_attn_cases(gen):
     stage; W-MSA and SW-MSA each. Yields (launch-counter key, qkv, bias,
     mask, heads, ws, shape label)."""
     from preworld_tpu_torch.models.swin import (
-        relative_position_index,
         shifted_window_mask,
         window_partition,
     )
 
     bf = torch.bfloat16
     ws, B = 12, 6
-    N = ws * ws
-    rel_idx = torch.from_numpy(relative_position_index(ws).reshape(-1)).cuda()
     cases = [("fused_window_attention", C, h, Hp, Wp)
              for C, h, Hp, Wp in SWINT_STAGES]
     cases += [("band_window_attention", C, h, Hp, Wp)
               for C, h, Hp, Wp, _, _ in SWIN_STAGES]
     for name, C, heads, Hp, Wp in cases:
-        table = randn(gen, ((2 * ws - 1) ** 2, heads), 0.5)
-        bias = table[rel_idx].reshape(N, N, heads).permute(2, 0, 1)
-        bias = bias.contiguous()
+        bias = window_bias(gen, ws, heads)
         qkv = randn(gen, (B, Hp, Wp, 3 * C), 1.0, bf)
         if name == "fused_window_attention":
             qkv = window_partition(qkv, ws).contiguous()
+        for shift in (0, ws // 2):
+            mask = (shifted_window_mask(Hp, Wp, ws, shift, "cuda")
+                    if shift else None)
+            yield (name, qkv, bias, mask, heads, ws,
+                   f"qkv {tuple(qkv.shape)} h{heads} shift{shift}")
+
+
+def window_bias(gen, ws, heads):
+    """A relative-position bias (heads, N, N) gathered from a random table
+    through the Swin index, as the model builds it."""
+    from preworld_tpu_torch.models.swin import relative_position_index
+
+    N = ws * ws
+    rel_idx = torch.from_numpy(relative_position_index(ws).reshape(-1)).cuda()
+    table = randn(gen, ((2 * ws - 1) ** 2, heads), 0.5)
+    return table[rel_idx].reshape(N, N, heads).permute(2, 0, 1).contiguous()
+
+
+def window_attn_bwd_small_cases(gen):
+    """Untimed K5b / K6b cases beside the flagship shapes, W-MSA and SW-MSA
+    each: windows of 8x8 and 4x4 (N 64 and 16: four warps and one per
+    block) on a 32x48 / 16x24 image of 2 heads, and 199 packed windows of
+    N 144 and 4 heads, whose last group of windows is ragged."""
+    from preworld_tpu_torch.models.swin import (
+        shifted_window_mask,
+        window_partition,
+    )
+    from preworld_tpu_torch.ops import _cuda
+
+    bf = torch.bfloat16
+    for name, C, heads, ws, Hp, Wp in (
+            ("fused_window_attention", 64, 2, 8, 32, 48),
+            ("band_window_attention", 64, 2, 8, 32, 48),
+            ("fused_window_attention", 64, 2, 4, 16, 24),
+            ("band_window_attention", 64, 2, 4, 16, 24),
+            ("fused_window_attention", 128, 4, 12, 48, 48)):
+        N = ws * ws
+        bias = window_bias(gen, ws, heads)
+        if ws == 12:
+            # the core gives each of `groups` blocks per head
+            # ceil(199 / groups) windows: the last group is short unless
+            # groups divides 199
+            groups = (_cuda.lib().pw_window_attn_bwd_part_elems(199, heads, N)
+                      // (heads * N * N))
+            if 199 % groups == 0:
+                raise AssertionError(f"199 windows in {groups} equal groups")
+            qkv = randn(gen, (199, N, 3 * C), 1.0, bf)
+        else:
+            qkv = randn(gen, (1, Hp, Wp, 3 * C), 1.0, bf)
+            if name == "fused_window_attention":
+                qkv = window_partition(qkv, ws).contiguous()
         for shift in (0, ws // 2):
             mask = (shifted_window_mask(Hp, Wp, ws, shift, "cuda")
                     if shift else None)
@@ -599,6 +640,15 @@ def check_window_attn_bwd(gen):
         r.update(_attn_work(qkv, heads, mask, ws, True))
         rows[name].append(r)
         del q, k, v, am, do
+    for name, qkv, bias, mask, heads, ws, shape in \
+            window_attn_bwd_small_cases(gen):
+        name = name + "_bwd"
+        dout = randn(gen, qkv.shape[:-1] + (qkv.shape[-1] // 3,), 1.0,
+                     qkv.dtype)
+        r = check_backward(name, ("qkv", "bias"), *fns[name],
+                           (qkv, bias, mask, dout, heads, ws), timed=False)
+        r.update(shape=shape, extra=True)
+        rows[name].append(r)
     return rows
 
 
@@ -1357,13 +1407,16 @@ def main() -> int:
                               for n, g in r["grads"].items())
             lib = (f", F.scaled_dot_product_attention forward + backward "
                    f"{r['library_ms']:.3f} ms" if "library_ms" in r else "")
-            shape = r["shape"] + (" (Swin-T width)" if r.get("extra") else "")
+            times = (f"; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+                     f"ms{lib}" if "ms" in r else "; untimed")
+            shape = r["shape"] + (
+                "" if not r.get("extra") else " (Swin-T width)" if "ms" in r
+                else " (small or ragged case)")
             status(f"kernel {label}",
                    f"{'ok' if r['ok'] else 'MISMATCH'} {shape}: rel-L2 "
                    f"{grads} (limit {BWD_REL_L2}); max abs err "
                    f"{r['max_abs_err']:.3g}; bit-identical over two runs "
-                   f"{r['bit_identical']}; kernel {r['ms']:.3f} ms, plain "
-                   f"{r['plain_ms']:.3f} ms{lib}")
+                   f"{r['bit_identical']}{times}")
     torch.cuda.empty_cache()
     swint = dict(routes=[("window", False)] * 2 + [("block", True)] * 2,
                  swin_embed_dims=SWINT["embed_dims"],

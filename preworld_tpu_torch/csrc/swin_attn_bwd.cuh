@@ -2,42 +2,73 @@
 // K5b / K6b (window_attn_bwd.cu), on the index maps and mask sources of
 // the forward core (swin_attn.cuh).
 //
-// One block per (head, group of windows); per window it gathers q, k, v
-// and dO of its N tokens through the map, recomputes S and P per 16-row
-// strip (mask, bias, P rounded to bf16 as in the forward), then
-//   D_i = rowsum(dO o O) with O = P V,  dS = P o (dO V^T - D),
-//   dQ = dS K d^-1/2 (row strips), dV = P^T dO, dK = dS^T Q d^-1/2
-// (column strips after a barrier), written to dqkv through the map. dS is
-// added into the block's own (N, N) slice of a (heads, groups, N, N) f32
-// partial buffer, each element always by the same thread, then reduced
-// over groups in a fixed order: no float atomics, identical bits run to
-// run. q, k, v, dO, P and dS of one window fill 229 KB of shared memory
-// (one block per SM); the kernel is latency-bound on its per-warp strips.
+// One block per (head, contiguous group of windows), one warp per 16-row
+// strip of the window: N / 16 warps (nine at N = 144), so each phase runs
+// in one round with every warp busy. The blocks of all heads of a group
+// run side by side, so a window's mask and token rows come from L2 after
+// the first head. Per window, with mma.sync m16n8k16 bf16 products (f32
+// sums) on ldmatrix fragments:
+//   row pass (warp = 16 query rows): S = q k^T d^-1/2 + mask + rel-bias
+//     in f32 (base 2), its row maxima by quad shuffles; one sweep of
+//     dP = dO v^T for the row sums of P and D = rowsum(P o dP) (as the TPU
+//     kernel: no O = P V recompute); a second for dS = P o (dP - D), added
+//     to the thread's own registers of the d rel-bias partial, with P
+//     (rounded to bf16 as the forward rounds it) and dS staged in shared
+//     memory; then dQ = dS K d^-1/2 from the warp's own rows of dS;
+//   column pass (warp = 16 keys): dV = P^T dO and dK = dS^T Q d^-1/2 from
+//     the staged P and dS (ldmatrix.trans).
+// Between the sweeps the f32 logits wait in the warp's own rows of the P /
+// dS staging, each in a word that only its thread reads and overwrites, so
+// the registers hold the d-bias partial and no score strip. q and dO of
+// window w + 1 are fetched with cp.async into a second stage while window
+// w computes, k and v of w + 1 during w's column pass. The head's relative
+// bias is read once per block into shared memory; a dense mask once per
+// window and head, by the threads that add it, four tiles ahead of use.
+// Each element of the (N, N) d-bias partial stays with the same thread for
+// the whole window range, summed in window order, and is written once at
+// the end to a (groups, heads, N, N) f32 buffer; one reduce_parts launch
+// sums it over groups in a fixed order. No float atomics, identical bits
+// run to run. A null mask runs a build without mask code (MASK_NONE).
+//
+// Bound on H100: the bytes of qkv, dO and dqkv (7 N d bf16 per window and
+// head, against 10 N^2 d tensor-core FLOP: about three times the operation
+// bound at every Swin shape). At N = 144 a block holds 226 KB of shared
+// memory (the bias, the P / dS staging, two stages of q and dO, k and v),
+// so one block of nine warps runs per SM; three of them share one of the
+// SM's four schedulers, which caps a thread at 168 registers (72 of them
+// the d-bias partial). A dense mask adds N^2 f32 per window and head, read
+// from L2: the largest stream of a masked call.
 #pragma once
 
 #include "swin_attn.cuh"
 
 namespace pw {
 
-constexpr int AB_LDT = 32 + 4;  // f32 stride of a warp's 16 x 32 tile
+constexpr int AB_MAXW = AT_MAXN / 16;  // warps per block, at most
+constexpr int AB_NT8 = AT_MAXN / 8;    // n8 score tiles per strip, at most
+constexpr int AB_MPF = 4;              // mask tiles loaded ahead of use
+constexpr int MASK_NONE = 2;           // beside MASK_REGION / MASK_DENSE: no mask
 
+// Shared-memory layout of the backward block for windows of N tokens.
+// q / k / v / dO tiles are N rows of 64 bytes whose four 16-byte chunks
+// are XOR-swizzled by row (ldmatrix without bank conflicts); the rows of
+// the f32 bias and of the bf16 P / dS are ld = n + 8 elements apart for the
+// same reason.
 struct AttnBwdSmem {
-  int N, ldS, ldP;
-  size_t q, k, v, dout, P, dS, strip, tile, D, reg, total;
-  __host__ __device__ AttnBwdSmem(int n) : N(n) {
-    ldS = n + 4;  // f32 strip: scores, then probabilities
-    ldP = n + 8;  // bf16 full P and dS
-    q = 0;
-    k = q + (size_t)n * AT_LDQ * 2;
-    v = k + (size_t)n * AT_LDQ * 2;
-    dout = v + (size_t)n * AT_LDQ * 2;
-    P = (dout + (size_t)n * AT_LDQ * 2 + 127) / 128 * 128;
-    dS = P + (size_t)n * ldP * 2;
-    strip = (dS + (size_t)n * ldP * 2 + 127) / 128 * 128;
-    tile = strip + (size_t)AT_WARPS * 16 * ldS * 4;
-    D = tile + (size_t)AT_WARPS * 16 * AB_LDT * 4;
-    reg = D + (size_t)n * 4;
-    total = reg + (size_t)n * 4;
+  int ld;
+  uint32_t tile, bias, P, dS, q, dout, k, v, reg, total;
+  __host__ __device__ AttnBwdSmem(int n) {
+    ld = n + 8;
+    tile = (uint32_t)n * AT_D * 2;
+    bias = 0;
+    P = bias + (uint32_t)n * ld * 4;
+    dS = P + (uint32_t)n * ld * 2;
+    q = dS + (uint32_t)n * ld * 2;  // two stages
+    dout = q + 2 * tile;             // two stages
+    k = dout + 2 * tile;
+    v = k + tile;
+    reg = v + tile;  // two stages of n ints
+    total = reg + (uint32_t)n * 8;
   }
 };
 
@@ -45,7 +76,8 @@ struct AttnBwdPlan {
   int groups, per;
 };
 
-// windows per block: enough (head, group) blocks for two per SM
+// windows per block: about 264 (head, group) blocks, two waves of one
+// block per SM at N = 144
 inline AttnBwdPlan attn_bwd_plan(int windows, int heads) {
   int g = (264 + heads - 1) / heads;
   if (g > windows) g = windows;
@@ -59,267 +91,476 @@ inline long long attn_bwd_part_elems(int windows, int heads, int N) {
   return (long long)heads * attn_bwd_plan(windows, heads).groups * N * N;
 }
 
-// 16 tokens x 32 channels of a warp's f32 tile (scaled, rounded to bf16)
-// into `dst` (rows of ldd) at column `col0`, through the index map.
-template <class Map>
-__device__ __forceinline__ void store_strip(const float* T, float s, bf16* dst, size_t ldd,
-                                            int col0, int st, const Map& map, int win,
-                                            int lane) {
-  for (int idx = lane; idx < 64; idx += 32) {
-    const int rr = idx >> 2, part = idx & 3;
-    const int t = st * 16 + rr;
-    __align__(16) bf16 o8[8];
+// byte offset of 16-byte chunk c of row t in a swizzled 64-byte-row tile
+__device__ __forceinline__ uint32_t swz(int t, int c) {
+  return (uint32_t)(t * 64 + ((c ^ ((t >> 1) & 3)) << 4));
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// c += a b, m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// A fragments (16 rows x 32 channels, two k16 steps) of rows [r0, r0 + 16)
+// of a swizzled tile
+__device__ __forceinline__ void load_a32(uint32_t (&a)[2][4], uint32_t tile, int r0, int lane) {
+  const int t = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) o8[j] = __float2bfloat16(s * T[rr * AB_LDT + part * 8 + j]);
-    *reinterpret_cast<uint4*>(dst + map.row(win, t) * ldd + col0 + part * 8) =
-        *reinterpret_cast<const uint4*>(o8);
+  for (int kc = 0; kc < 2; ++kc) ldsm4(a[kc], tile + swz(t, kc * 2 + (lane >> 4)));
+}
+
+// B fragments of an n8 tile whose columns are rows [n0, n0 + 8) of a
+// swizzled tile (B = tile^T): {b0, b1} of k16 step 0, then of step 1
+__device__ __forceinline__ void load_bt32(uint32_t (&b)[4], uint32_t tile, int n0, int lane) {
+  ldsm4(b, tile + swz(n0 + (lane & 7), lane >> 3));
+}
+
+// B fragments for the k16 step of rows [k0, k0 + 16) of a swizzled tile
+// read as (k, n): b[2 nd + 0/1] for n8 tile nd of its 32 channels
+__device__ __forceinline__ void load_bk16(uint32_t (&b)[8], uint32_t tile, int k0, int lane) {
+  const int t = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint32_t r[4];
+    ldsm4t(r, tile + swz(t, half * 2 + (lane >> 4)));
+    b[half * 4 + 0] = r[0];
+    b[half * 4 + 1] = r[1];
+    b[half * 4 + 2] = r[2];
+    b[half * 4 + 3] = r[3];
+  }
+}
+
+// A fragment of a 16 x 16 block of a padded bf16 matrix (rows [r0, r0 +
+// 16), columns [c0, c0 + 16), row stride ld elements)
+__device__ __forceinline__ void load_a16(uint32_t (&a)[4], const bf16* m, int ld, int r0, int c0,
+                                         int lane) {
+  const int r = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int c = c0 + (lane >> 4) * 8;
+  ldsm4(a, smem_u32(m + (size_t)r * ld + c));
+}
+
+// A fragment of the transpose of a 16 x 16 block of a padded bf16 matrix
+// (rows [r0, r0 + 16), columns [c0, c0 + 16), row stride ld elements)
+__device__ __forceinline__ void load_at16(uint32_t (&a)[4], const bf16* m, int ld, int r0, int c0,
+                                          int lane) {
+  const int r = r0 + (lane & 7) + (lane >> 4) * 8;
+  const int c = c0 + ((lane >> 3) & 1) * 8;
+  ldsm4t(a, smem_u32(m + (size_t)r * ld + c));
+}
+
+// Rows of a window's tokens with no division per token: the window's
+// origin once, then each token's row from its place in the window.
+struct WinOrigin {
+  size_t base;
+  int r, c;
+};
+
+__device__ __forceinline__ WinOrigin window_origin(const ImageMap& m, int win) {
+  const int per_img = m.nH * m.nW;
+  const int b = win / per_img, wi = win - b * per_img;
+  const int wr = wi / m.nW, wc = wi - wr * m.nW;
+  return {(size_t)b * m.Hp, wr * m.ws + m.shift, wc * m.ws + m.shift};
+}
+
+// ImageMap::row without its divisions: t / ws in f32 (exact for t < 2^16),
+// the roll's wrap as one subtraction
+__device__ __forceinline__ size_t token_row(const ImageMap& m, const WinOrigin& o, int t) {
+  const int i = __float2int_rz(((float)t + 0.5f) * __frcp_rn((float)m.ws));
+  int r = o.r + i, c = o.c + t - i * m.ws;
+  if (r >= m.Hp) r -= m.Hp;
+  if (c >= m.Wp) c -= m.Wp;
+  return (o.base + r) * m.Wp + c;
+}
+
+__device__ __forceinline__ WinOrigin window_origin(const PackedMap& m, int win) {
+  return {(size_t)win * m.N, 0, 0};
+}
+
+__device__ __forceinline__ size_t token_row(const PackedMap&, const WinOrigin& o, int t) {
+  return o.base + t;
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A 16 x 32 f32 accumulator tile (four n8 tiles), times s, rounded to bf16,
+// to rows rows[0] (the thread's first row) and rows[1] (8 below it) of
+// `dst` (rows of ldd) at column col0: the quad swaps its words so that each
+// thread stores 16 bytes.
+__device__ __forceinline__ void store_tile(const float (&acc)[4][4], float s, bf16* dst,
+                                           size_t ldd, int col0, const size_t (&rows)[2],
+                                           int lane) {
+  const int tig = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    uint32_t w[4], o[4];
+#pragma unroll
+    for (int nd = 0; nd < 4; ++nd)
+      w[nd] = pack_bf16(s * acc[nd][2 * half], s * acc[nd][2 * half + 1]);
+    // thread tig gathers word tig of each quad lane: channels 8 tig..8 tig+7
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int give = (tig - k) & 3, from = (tig + k) & 3;
+      const uint32_t send = give == 0 ? w[0] : give == 1 ? w[1] : give == 2 ? w[2] : w[3];
+      const uint32_t got = __shfl_sync(0xffffffffu, send, (lane & ~3) | from);
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        if (m == from) o[m] = got;
+    }
+    *reinterpret_cast<uint4*>(dst + rows[half] * ldd + col0 + tig * 8) =
+        make_uint4(o[0], o[1], o[2], o[3]);
   }
 }
 
 template <class Map, int MASK>
-__global__ void __launch_bounds__(AT_THREADS, 1)
+__global__ void __launch_bounds__(AB_MAXW * 32, 1)
 window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                        const float* __restrict__ rel_bias, const void* __restrict__ mask,
                        bf16* __restrict__ dqkv, float* __restrict__ dbias_part, Map map,
-                       int windows, int C, int N, float scale, int groups, int per) {
-  using namespace nvcuda;
+                       int windows, int heads, int C, int N, float scale, int per) {
+  constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(128) unsigned char smem[];
   const AttnBwdSmem L(N);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L.q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L.k);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L.v);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L.dout);
-  bf16* Pf = reinterpret_cast<bf16*>(smem + L.P);
-  bf16* dSf = reinterpret_cast<bf16*>(smem + L.dS);
-  float* Dsm = reinterpret_cast<float*>(smem + L.D);
-  int* reg = reinterpret_cast<int*>(smem + L.reg);
+  const float* biasS = reinterpret_cast<const float*>(smem + L.bias);
+  bf16* Ps = reinterpret_cast<bf16*>(smem + L.P);
+  bf16* dSs = reinterpret_cast<bf16*>(smem + L.dS);
+  const uint32_t sbase = smem_u32(smem);
 
-  const int g = blockIdx.x, h = blockIdx.y;
+  // all heads of one group of windows run side by side: their masks and
+  // token rows are read once from device memory, then from L2
+  const int h = blockIdx.x, g = blockIdx.y;
+  const int nt = N / 16, nt8 = N / 8, threads = nt * 32;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nt = N / 16;
-  const bool masked = mask != nullptr;
+  const int gq = lane >> 2, tig = lane & 3;
+  const int r0 = warp * 16;  // the warp's query rows (row pass), keys (column pass)
+  constexpr bool dense = MASK == MASK_DENSE;
   const size_t C3 = 3 * (size_t)C;
-  const int ldS = L.ldS, ldP = L.ldP;
-  float* S = reinterpret_cast<float*>(smem + L.strip) + (size_t)warp * 16 * ldS;
-  float* T = reinterpret_cast<float*>(smem + L.tile) + (size_t)warp * 16 * AB_LDT;
-  const float* bh = rel_bias + (size_t)h * N * N;
-  float* dbp = dbias_part + ((size_t)h * groups + g) * N * N;
+  const int w0 = g * per, w1 = min(windows, w0 + per);
+  // the f32 logits of a row wait in the warp's own rows of the P / dS
+  // staging, where its bf16 P and dS go later: (r, 8 j + 2 tig) in word
+  // 4 j + tig of P's row r, (r, 8 j + 2 tig + 1) in that word of dS's, so
+  // each thread overwrites only words it has read itself
+  uint32_t* Pw = reinterpret_cast<uint32_t*>(Ps);
+  uint32_t* Dw = reinterpret_cast<uint32_t*>(dSs);
+  const int H = L.ld / 2;                   // words of a staging row
+  const int slot = (r0 + gq) * H + tig;     // (row r0 + gq, tile 0); row + 8 at 8 H
 
-  for (int i = tid; i < N * N; i += AT_THREADS) dbp[i] = 0.f;
-  __syncthreads();
-
-  const int w1 = min(windows, (g + 1) * per);
-  for (int win = g * per; win < w1; ++win) {
-    // gather q, k, v and dO of this head for the window's N tokens
-    for (int idx = tid; idx < N * 16; idx += AT_THREADS) {
-      const int t = idx >> 4, which = (idx >> 2) & 3, part = idx & 3;
-      const size_t tok = map.row(win, t);
-      const bf16* src = which < 3 ? qkv + tok * C3 + which * C + h * AT_D + part * 8
-                                  : dout + tok * C + h * AT_D + part * 8;
-      bf16* dst = (which == 0 ? Qs : which == 1 ? Ks : which == 2 ? Vs : dOs) + t * AT_LDQ +
-                  part * 8;
-      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+  // q and dO (and region ids) of window `win` into stage b; k and v
+  auto load_qdo = [&](int win, int b) {
+    const WinOrigin o = window_origin(map, win);
+    for (int idx = tid; idx < N * 8; idx += threads) {
+      const int t = idx >> 3, which = (idx >> 2) & 1, c = idx & 3;
+      const size_t tok = token_row(map, o, t);
+      const bf16* src = which == 0 ? qkv + tok * C3 + h * AT_D + c * 8
+                                   : dout + tok * C + h * AT_D + c * 8;
+      cp_async16(sbase + (which == 0 ? L.q : L.dout) + b * L.tile + swz(t, c), src);
     }
-    const float* mw = nullptr;
-    if (MASK == MASK_DENSE && masked)
-      mw = static_cast<const float*>(mask) + (size_t)map.mask_win(win) * N * N;
-    if (MASK == MASK_REGION && masked)
-      for (int t = tid; t < N; t += AT_THREADS)
-        reg[t] = static_cast<const int*>(mask)[(size_t)map.mask_win(win) * N + t];
-    __syncthreads();
+    if (MASK == MASK_REGION)
+      for (int t = tid; t < N; t += threads)
+        cp_async4(sbase + L.reg + (b * N + t) * 4,
+                  static_cast<const int*>(mask) + (size_t)map.mask_win(win) * N + t);
+  };
+  auto load_kv = [&](int win) {
+    const WinOrigin o = window_origin(map, win);
+    for (int idx = tid; idx < N * 8; idx += threads) {
+      const int t = idx >> 3, which = (idx >> 2) & 1, c = idx & 3;
+      const bf16* src = qkv + token_row(map, o, t) * C3 + (1 + which) * C + h * AT_D + c * 8;
+      cp_async16(sbase + (which == 0 ? L.k : L.v) + swz(t, c), src);
+    }
+  };
 
-    // phase 1: 16-row strips of S, P, D, dS and dQ
-    for (int st = warp; st < nt; st += AT_WARPS) {
-      for (int j = 0; j < nt; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
+  if (w0 < w1) {
+    load_qdo(w0, 0);
+    load_kv(w0);
+  }
+  cp_async_commit();
+  {
+    const float* bh = rel_bias + (size_t)h * N * N;
+    float* bs = reinterpret_cast<float*>(smem + L.bias);
+    for (int i = tid; i < N * N; i += threads) bs[(i / N) * L.ld + i % N] = bh[i];
+  }
+
+  // d rel-bias partial: element (r0 + gq + 8 (e >> 1), 8 j + 2 tig + (e & 1))
+  float dbias[AB_NT8][4];
 #pragma unroll
-        for (int kk = 0; kk < AT_D; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, Qs + st * 16 * AT_LDQ + kk, AT_LDQ);
-          wmma::load_matrix_sync(fb, Ks + j * 16 * AT_LDQ + kk, AT_LDQ);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(S + j * 16, acc, ldS, wmma::mem_row_major);
+  for (int j = 0; j < AB_NT8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dbias[j][e] = 0.f;
+
+  for (int win = w0; win < w1; ++win) {
+    const int b = (win - w0) & 1;
+    cp_async_wait_all();
+    __syncthreads();
+    if (win + 1 < w1) load_qdo(win + 1, b ^ 1);
+    cp_async_commit();
+
+    // ---- row pass: query rows [r0, r0 + 16)
+    const uint32_t Qt = sbase + L.q + b * L.tile, Dt = sbase + L.dout + b * L.tile;
+    const uint32_t Kt = sbase + L.k, Vt = sbase + L.v;
+    // logits l = (scale q.k^T + mask + bias) log2(e) tile by tile into the
+    // staging, and their row maxima; rows r0 + gq (i = 0), r0 + gq + 8 (1)
+    float mx[2] = {-INFINITY, -INFINITY};
+    {
+      // a dense mask's pairs of the thread's two rows, AB_MPF tiles ahead of
+      // their use (registers cycle through mq[j % AB_MPF])
+      const float* mw = nullptr;
+      float2 mq[AB_MPF][2];
+      if (dense) {
+        mw = static_cast<const float*>(mask) + (size_t)map.mask_win(win) * N * N +
+             (size_t)(r0 + gq) * N + 2 * tig;
+#pragma unroll
+        for (int j = 0; j < AB_MPF; ++j)
+          if (j < nt8)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              mq[j][i] = *reinterpret_cast<const float2*>(mw + (size_t)8 * i * N + 8 * j);
       }
-      __syncwarp();
-      // softmax as in the forward: f32 P over the strip, bf16 P into Pf
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = st * 16 + rr;
-        float* srow = S + rr * ldS;
-        float e[AT_CPL];
-        float mx = -INFINITY;
+      int rg[2] = {0, 0};
+      const int* reg = reinterpret_cast<const int*>(smem + L.reg) + b * N;
+      if (MASK == MASK_REGION) {
+        rg[0] = reg[r0 + gq];
+        rg[1] = reg[r0 + gq + 8];
+      }
+      uint32_t qa[2][4];
+      load_a32(qa, Qt, r0, lane);
 #pragma unroll
-        for (int u = 0; u < AT_CPL; ++u) {
-          const int c = lane + 32 * u;
-          float sc = -INFINITY;
-          if (c < N) {
-            sc = srow[c] * scale;
-            if (masked) {
-              if (MASK == MASK_REGION) {
-                if (reg[r] != reg[c]) sc += -100.f;
-              } else {
-                sc += mw[(size_t)r * N + c];
-              }
+      for (int j = 0; j < AB_NT8; ++j) {
+        if (j < nt8) {
+          uint32_t kb[4];
+          load_bt32(kb, Kt, j * 8, lane);
+          float s[4] = {0.f, 0.f, 0.f, 0.f};
+          mma16816(s, qa[0], kb[0], kb[1]);
+          mma16816(s, qa[1], kb[2], kb[3]);
+          const int c = j * 8 + 2 * tig;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const int r = r0 + gq + 8 * i;
+            float l0 = s[2 * i] * scale, l1 = s[2 * i + 1] * scale;
+            if (dense) {
+              l0 += mq[j % AB_MPF][i].x;
+              l1 += mq[j % AB_MPF][i].y;
             }
-            sc += bh[(size_t)r * N + c];
+            if (MASK == MASK_REGION) {
+              const int2 rc = *reinterpret_cast<const int2*>(reg + c);
+              if (rg[i] != rc.x) l0 += -100.f;
+              if (rg[i] != rc.y) l1 += -100.f;
+            }
+            const float2 bv = *reinterpret_cast<const float2*>(biasS + r * L.ld + c);
+            l0 = (l0 + bv.x) * LOG2E;
+            l1 = (l1 + bv.y) * LOG2E;
+            Pw[slot + 8 * i * H + 4 * j] = __float_as_uint(l0);
+            Dw[slot + 8 * i * H + 4 * j] = __float_as_uint(l1);
+            mx[i] = fmaxf(mx[i], fmaxf(l0, l1));
           }
-          e[u] = sc;
-          mx = fmaxf(mx, sc);
-        }
-        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        float sum = 0.f;
+          if (dense && j + AB_MPF < nt8)
 #pragma unroll
-        for (int u = 0; u < AT_CPL; ++u) {
-          e[u] = (lane + 32 * u < N) ? expf(e[u] - mx) : 0.f;
-          sum += e[u];
-        }
-        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        const float inv = 1.f / sum;
-#pragma unroll
-        for (int u = 0; u < AT_CPL; ++u) {
-          const int c = lane + 32 * u;
-          if (c < N) {
-            const float p = e[u] * inv;
-            srow[c] = p;
-            Pf[r * ldP + c] = __float2bfloat16(p);
-          }
+            for (int i = 0; i < 2; ++i)
+              mq[j % AB_MPF][i] =
+                  *reinterpret_cast<const float2*>(mw + (size_t)8 * i * N + 8 * (j + AB_MPF));
         }
       }
-      __syncwarp();
-
-      // O = P V for the strip, then D = rowsum(dO o O)
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o2[2];
-      wmma::fill_fragment(o2[0], 0.f);
-      wmma::fill_fragment(o2[1], 0.f);
-      for (int kk = 0; kk < N; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, Pf + st * 16 * ldP + kk, ldP);
 #pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, Vs + kk * AT_LDQ + j * 16, AT_LDQ);
-          wmma::mma_sync(o2[j], fa, fb, o2[j]);
-        }
-      }
-      wmma::store_matrix_sync(T, o2[0], AB_LDT, wmma::mem_row_major);
-      wmma::store_matrix_sync(T + 16, o2[1], AB_LDT, wmma::mem_row_major);
-      __syncwarp();
-      {
-        const int rr = lane >> 1, half = lane & 1;
-        const bf16* dorow = dOs + (st * 16 + rr) * AT_LDQ + half * 16;
-        float d = 0.f;
-#pragma unroll
-        for (int k = 0; k < 16; ++k) d += __bfloat162float(dorow[k]) * T[rr * AB_LDT + half * 16 + k];
-        d += __shfl_xor_sync(0xffffffffu, d, 1);
-        if (!half) Dsm[st * 16 + rr] = d;
-      }
-      __syncwarp();
-
-      // dS tile by tile: dP = dO V^T, dS = P (dP - D); into the bias
-      // gradient partial (same thread for each element in every window)
-      for (int j = 0; j < nt; ++j) {
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-        wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < AT_D; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-          wmma::load_matrix_sync(fa, dOs + st * 16 * AT_LDQ + kk, AT_LDQ);
-          wmma::load_matrix_sync(fb, Vs + j * 16 * AT_LDQ + kk, AT_LDQ);
-          wmma::mma_sync(acc, fa, fb, acc);
-        }
-        wmma::store_matrix_sync(T, acc, AB_LDT, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int rr = e >> 4, cc = e & 15;
-          const int r = st * 16 + rr, c = j * 16 + cc;
-          const float ds = S[rr * ldS + c] * (T[rr * AB_LDT + cc] - Dsm[r]);
-          dbp[(size_t)r * N + c] += ds;
-          dSf[r * ldP + c] = __float2bfloat16(ds);
-        }
-        __syncwarp();
-      }
-
-      // dQ = dS K * scale
-      wmma::fill_fragment(o2[0], 0.f);
-      wmma::fill_fragment(o2[1], 0.f);
-      for (int kk = 0; kk < N; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, dSf + st * 16 * ldP + kk, ldP);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, Ks + kk * AT_LDQ + j * 16, AT_LDQ);
-          wmma::mma_sync(o2[j], fa, fb, o2[j]);
-        }
-      }
-      wmma::store_matrix_sync(T, o2[0], AB_LDT, wmma::mem_row_major);
-      wmma::store_matrix_sync(T + 16, o2[1], AB_LDT, wmma::mem_row_major);
-      __syncwarp();
-      store_strip(T, scale, dqkv, C3, h * AT_D, st, map, win, lane);
-      __syncwarp();
-    }
-    __syncthreads();
-
-    // phase 2: 16-column strips of dV = P^T dO and dK = dS^T Q * scale
-    for (int sj = warp; sj < nt; sj += AT_WARPS) {
-#pragma unroll
-      for (int which = 0; which < 2; ++which) {
-        const bf16* Am = which == 0 ? Pf : dSf;
-        const bf16* Bm = which == 0 ? dOs : Qs;
-        wmma::fragment<wmma::accumulator, 16, 16, 16, float> o2[2];
-        wmma::fill_fragment(o2[0], 0.f);
-        wmma::fill_fragment(o2[1], 0.f);
-        for (int kk = 0; kk < N; kk += 16) {
-          // element (j, i) of the transposed operand at Am[i][j]
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa;
-          wmma::load_matrix_sync(fa, Am + kk * ldP + sj * 16, ldP);
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, Bm + kk * AT_LDQ + j * 16, AT_LDQ);
-            wmma::mma_sync(o2[j], fa, fb, o2[j]);
-          }
-        }
-        wmma::store_matrix_sync(T, o2[0], AB_LDT, wmma::mem_row_major);
-        wmma::store_matrix_sync(T + 16, o2[1], AB_LDT, wmma::mem_row_major);
-        __syncwarp();
-        if (which == 0)
-          store_strip(T, 1.f, dqkv, C3, 2 * C + h * AT_D, sj, map, win, lane);
-        else
-          store_strip(T, scale, dqkv, C3, C + h * AT_D, sj, map, win, lane);
-        __syncwarp();
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
       }
     }
+
+    // one sweep over dP = dO v^T: the row sums of e = 2^(l - max) and of
+    // e o dP; normalised, 1 / sum and D = rowsum(P o dP)
+    uint32_t da[2][4];
+    load_a32(da, Dt, r0, lane);
+    float inv[2] = {0.f, 0.f}, Drow[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < AB_NT8; ++j) {
+      if (j < nt8) {
+        uint32_t vb[4];
+        load_bt32(vb, Vt, j * 8, lane);
+        float dp[4] = {0.f, 0.f, 0.f, 0.f};
+        mma16816(dp, da[0], vb[0], vb[1]);
+        mma16816(dp, da[1], vb[2], vb[3]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float e0 = fast_exp2(__uint_as_float(Pw[slot + 8 * i * H + 4 * j]) - mx[i]);
+          const float e1 = fast_exp2(__uint_as_float(Dw[slot + 8 * i * H + 4 * j]) - mx[i]);
+          inv[i] += e0 + e1;
+          Drow[i] += e0 * dp[2 * i] + e1 * dp[2 * i + 1];
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      inv[i] += __shfl_xor_sync(0xffffffffu, inv[i], 1);
+      inv[i] += __shfl_xor_sync(0xffffffffu, inv[i], 2);
+      Drow[i] += __shfl_xor_sync(0xffffffffu, Drow[i], 1);
+      Drow[i] += __shfl_xor_sync(0xffffffffu, Drow[i], 2);
+      inv[i] = 1.f / inv[i];
+      Drow[i] *= inv[i];
+    }
+
+    // dS = P o (dP - D), P and dP formed again: into the d-bias partial;
+    // P (rounded to bf16 as the forward rounds it) and dS over the logits
+#pragma unroll
+    for (int j = 0; j < AB_NT8; ++j) {
+      if (j < nt8) {
+        uint32_t vb[4];
+        load_bt32(vb, Vt, j * 8, lane);
+        float dp[4] = {0.f, 0.f, 0.f, 0.f};
+        mma16816(dp, da[0], vb[0], vb[1]);
+        mma16816(dp, da[1], vb[2], vb[3]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int w = slot + 8 * i * H + 4 * j;
+          const float p0 = fast_exp2(__uint_as_float(Pw[w]) - mx[i]) * inv[i];
+          const float p1 = fast_exp2(__uint_as_float(Dw[w]) - mx[i]) * inv[i];
+          const float ds0 = p0 * (dp[2 * i] - Drow[i]), ds1 = p1 * (dp[2 * i + 1] - Drow[i]);
+          dbias[j][2 * i] += ds0;
+          dbias[j][2 * i + 1] += ds1;
+          Pw[w] = pack_bf16(p0, p1);
+          Dw[w] = pack_bf16(ds0, ds1);
+        }
+      }
+    }
+    __syncwarp();
+
+    // the rows of the warp's 16 tokens: queries here, keys in the column pass
+    size_t rows[2];
+    {
+      const WinOrigin o = window_origin(map, win);
+      rows[0] = token_row(map, o, r0 + gq);
+      rows[1] = token_row(map, o, r0 + gq + 8);
+    }
+
+    // dQ = dS K d^-1/2 from the warp's own rows of the staged dS
+    {
+      float dq[4][4];
+#pragma unroll
+      for (int nd = 0; nd < 4; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < AB_MAXW; ++kk) {
+        if (kk < nt) {
+          uint32_t a[4], kb[8];
+          load_a16(a, dSs, L.ld, r0, kk * 16, lane);
+          load_bk16(kb, Kt, kk * 16, lane);
+#pragma unroll
+          for (int nd = 0; nd < 4; ++nd) mma16816(dq[nd], a, kb[2 * nd], kb[2 * nd + 1]);
+        }
+      }
+      store_tile(dq, scale, dqkv, C3, h * AT_D, rows, lane);
+    }
     __syncthreads();
+    if (win + 1 < w1) load_kv(win + 1);
+    cp_async_commit();
+
+    // ---- column pass: keys [r0, r0 + 16); dV = P^T dO, dK = dS^T Q
+    {
+      float dv[4][4], dk[4][4];
+#pragma unroll
+      for (int nd = 0; nd < 4; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dv[nd][e] = dk[nd][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < AB_MAXW; ++kk) {
+        if (kk < nt) {
+          uint32_t a[4], bb[8];
+          load_at16(a, Ps, L.ld, kk * 16, r0, lane);
+          load_bk16(bb, Dt, kk * 16, lane);
+#pragma unroll
+          for (int nd = 0; nd < 4; ++nd) mma16816(dv[nd], a, bb[2 * nd], bb[2 * nd + 1]);
+          load_at16(a, dSs, L.ld, kk * 16, r0, lane);
+          load_bk16(bb, Qt, kk * 16, lane);
+#pragma unroll
+          for (int nd = 0; nd < 4; ++nd) mma16816(dk[nd], a, bb[2 * nd], bb[2 * nd + 1]);
+        }
+      }
+      store_tile(dv, 1.f, dqkv, C3, 2 * C + h * AT_D, rows, lane);
+      store_tile(dk, scale, dqkv, C3, C + h * AT_D, rows, lane);
+    }
+  }
+  cp_async_wait_all();
+
+  float* dbp = dbias_part + ((size_t)g * heads + h) * N * N;
+#pragma unroll
+  for (int j = 0; j < AB_NT8; ++j) {
+    if (j < nt8) {
+      const int c = j * 8 + 2 * tig;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dbp[(size_t)(r0 + gq + 8 * (e >> 1)) * N + c + (e & 1)] =
+          dbias[j][e];
+    }
   }
 }
 
 // Launch the backward core over `windows` windows of N tokens, then reduce
-// the partial into drel (heads, N, N) head by head. `part` holds
-// attn_bwd_part_elems(windows, heads, N) floats. Returns the first CUDA
-// error.
+// the (groups, heads, N, N) partial into drel (heads, N, N) in one launch.
+// `part` holds attn_bwd_part_elems(windows, heads, N) floats; a null mask
+// runs the MASK_NONE build. Returns the first CUDA error.
 template <class Map, int MASK>
 inline cudaError_t window_attn_bwd(const bf16* qkv, const bf16* dout, const float* rel_bias,
                                    const void* mask, bf16* dqkv, float* drel, float* part,
                                    Map map, int windows, int heads, int C, int N, float scale,
                                    cudaStream_t stream) {
+  if constexpr (MASK != MASK_NONE)
+    if (mask == nullptr)
+      return window_attn_bwd<Map, MASK_NONE>(qkv, dout, rel_bias, mask, dqkv, drel, part, map,
+                                             windows, heads, C, N, scale, stream);
   const AttnBwdSmem L(N);
   void (*kern)(const bf16*, const bf16*, const float*, const void*, bf16*, float*, Map, int, int,
-               int, float, int, int) = window_attn_bwd_kernel<Map, MASK>;
+               int, int, float, int) = window_attn_bwd_kernel<Map, MASK>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return err;
   const AttnBwdPlan plan = attn_bwd_plan(windows, heads);
-  kern<<<dim3(plan.groups, heads), AT_THREADS, L.total, stream>>>(
-      qkv, dout, rel_bias, mask, dqkv, part, map, windows, C, N, scale, plan.groups, plan.per);
+  kern<<<dim3(heads, plan.groups), N / 16 * 32, L.total, stream>>>(
+      qkv, dout, rel_bias, mask, dqkv, part, map, windows, heads, C, N, scale, plan.per);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // the partial layout is (heads, groups, N, N): reduce head by head
-  for (int h = 0; h < heads; ++h)
-    reduce_parts(part + (size_t)h * plan.groups * N * N, drel + (size_t)h * N * N, plan.groups,
-                 (long long)N * N, stream);
+  reduce_parts(part, drel, plan.groups, (long long)heads * N * N, stream);
   return cudaGetLastError();
 }
 

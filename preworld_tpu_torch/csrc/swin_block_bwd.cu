@@ -28,9 +28,10 @@
 //
 // Bound on H100: the four GEMMs (2 x 4 C^2 + 2 x 2 C^2 FLOP per token, the
 // qkv recompute included) are compute-bound on the same synchronous wmma
-// tiles as the forward; the attention backward holds q, k, v, dO, P and dS
-// of one window in 229 KB of shared memory (one block per SM) and is
-// latency-bound on its per-warp strips.
+// tiles as the forward; the attention backward (step 6) is the Hopper core
+// of swin_attn_bwd.cuh, bound by the bytes of qkv, dO and dqkv: mma.sync
+// products, one warp per 16-row strip, the next window's loads in flight,
+// the d-bias partial on chip for the block's windows.
 #include "swin_attn_bwd.cuh"
 
 namespace pw {

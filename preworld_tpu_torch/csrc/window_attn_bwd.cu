@@ -8,15 +8,18 @@
 // recomputing each window's softmax instead of saving probabilities. The
 // TPU kernels carry the bias gradient in one VMEM block across their
 // ordered grid; on Hopper the blocks run unordered, so this is the
-// backward core of swin_attn_bwd.cuh (one block per (head, group of
-// windows), a per-block (N, N) partial, each element always summed by the
-// same thread) followed by a reduction over groups in a fixed order: no
-// float atomics, identical bits run to run.
+// backward core of swin_attn_bwd.cuh: one block of N / 16 warps per
+// (head, group of windows) on mma.sync products, the next window's q, k,
+// v and dO fetched with cp.async while this one computes, the (N, N)
+// d-bias partial in the registers of the threads that own its elements,
+// written once per block and reduced over groups in one launch in a fixed
+// order: no float atomics, identical bits run to run.
 //
-// Bound on H100: per window and head 8 N^2 d FLOP on tensor cores (S
-// recomputed, dV, dP, dQ, dK) and 2 N^2 d more for O, against N (3d + d)
-// bf16 read and 3 N d written: device memory binds the ideal. The kernel
-// is latency-bound: one 229 KB block per SM.
+// Bound on H100: the bytes of qkv and dO read and dqkv written, N (3d + d)
+// + 3 N d bf16 per window and head, against 10 N^2 d tensor-core FLOP (S
+// recomputed, dV, dP, dQ, dK; the kernel forms dP twice rather than hold
+// it in registers): at d = 32 and N = 144 the byte bound is about three
+// times the operation bound.
 #include "swin_attn_bwd.cuh"
 
 using pw::bf16;

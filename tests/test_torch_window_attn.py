@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from preworld_tpu.models import swin as jax_swin
 from preworld_tpu.ops.window_attn_pallas import (
     _band_window_attention_bwd as jax_band_bwd,
 )
@@ -28,6 +29,7 @@ from preworld_tpu.ops.window_attn_pallas import (
 from preworld_tpu.ops.window_attn_pallas import (
     fused_window_attention as jax_fused,
 )
+from preworld_tpu_torch.models import swin as torch_swin
 from preworld_tpu_torch.ops import window_attn_pallas as wa
 
 VAL = dict(rtol=1e-5, atol=1e-5)
@@ -99,6 +101,35 @@ def test_band_window_attention_matches_pallas(masked):
                             interpret=True)
     dq, db = wa.band_window_attention_bwd(_t(qkv), _t(bias), _opt(mask),
                                           _t(dout), h, ws)
+    np.testing.assert_allclose(dq.numpy(), np.asarray(jdq), **GRAD)
+    np.testing.assert_allclose(db.numpy(), np.asarray(jdb), **GRAD)
+
+
+@pytest.mark.parametrize("band", [False, True])
+def test_backward_at_the_flagship_window(band):
+    """K5b and K6b at the flagship window 12 (N 144, the window the card's
+    backward splits into nine 16-row strips): one 24x24 image (2x2
+    windows), 2 heads of 32, the SW-MSA mask of shift 6 from the JAX
+    `shifted_window_mask` and from the port's own copy."""
+    h, d, ws, Hp, Wp = 2, 32, 12, 24, 24
+    N = ws * ws
+    jmask = np.asarray(jax_swin.shifted_window_mask(Hp, Wp, ws, ws // 2))
+    mask = torch_swin.shifted_window_mask(Hp, Wp, ws, ws // 2)
+    np.testing.assert_array_equal(mask.numpy(), jmask)
+    qkv, bias, _, dout = _inputs(11, (1, Hp, Wp), N, h, d, 4, False)
+    if band:
+        jdq, jdb = jax_band_bwd(_j(qkv), _j(bias), _j(jmask), _j(dout), h,
+                                ws, interpret=True)
+        dq, db = wa.band_window_attention_bwd(_t(qkv), _t(bias), mask,
+                                              _t(dout), h, ws)
+    else:
+        qkv = qkv.reshape(2, ws, 2, ws, 3 * h * d).transpose(0, 2, 1, 3, 4)
+        qkv = qkv.reshape(4, N, 3 * h * d)
+        dout = dout.reshape(4, N, h * d)
+        jdq, jdb = jax_fused_bwd(_j(qkv), _j(bias), _j(jmask), _j(dout), h,
+                                 window_g=2, interpret=True)
+        dq, db = wa.fused_window_attention_bwd(_t(qkv), _t(bias), mask,
+                                               _t(dout), h)
     np.testing.assert_allclose(dq.numpy(), np.asarray(jdq), **GRAD)
     np.testing.assert_allclose(db.numpy(), np.asarray(jdb), **GRAD)
 
