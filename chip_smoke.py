@@ -12,7 +12,12 @@ fallback to the CPU or to a kernel's plain version:
   kernel K*  each kernel against its plain PyTorch version on the card, at
              the flagship shapes (K3 also at 256 channels; K7 at the
              shapes of the per-stage bench's cost volume, and at 256
-             channels), within the stated tolerance; both timed.
+             channels; K1 / K2 also, untimed, at Swin-T's block-route
+             stages), within the stated tolerance; both timed.
+  kernel K1/K2 stages  the K1 / K2 chains launch by launch at every Swin-B
+             stage (qkv, attention, proj; fc1, fc2; device ms from
+             torch.profiler), each GEMM beside one torch.matmul of the same
+             bf16 product (cuBLAS, a yardstick the port never calls).
   reference  a small config (flagship widths, 2 Swin blocks per stage,
              128x352 input, 2 cameras, 20x20x8 grid) runs on the card in
              bf16 through the kernels and on the CPU in f32 through the plain
@@ -38,9 +43,12 @@ fallback to the CPU or to a kernel's plain version:
              step time, peak memory and a profiler breakdown of one more step.
   kernel K5/K6  K5 (packed windows) at Swin-T stages 0-1 and K6 (image
              layout) at every Swin-B stage, W-MSA and SW-MSA, B = 6, against
-             their plain versions; kernel, plain and
-             F.scaled_dot_product_attention times (the last a yardstick on
-             the same q, k, v and bias + mask, never on the port's path).
+             their plain versions, bit-identical over two runs; kernel,
+             plain and F.scaled_dot_product_attention times (the last a
+             yardstick on the same q, k, v and bias + mask, never on the
+             port's path), and per stage the unmasked and masked times on
+             a line of their own. Then, untimed, the small and ragged cases
+             of kernel K5b/K6b below.
   kernel K5b/K6b  their backward kernels at the same shapes: rel-L2 per
              gradient within BWD_REL_L2, bit-identical over two runs; timed
              like the forward (SDPA forward + backward as the yardstick).
@@ -311,7 +319,10 @@ def bound(rows) -> tuple:
 # ----------------------------------------------------------------- kernels
 
 def check_swin(gen):
-    """K1 and K2 at one W-MSA and one SW-MSA block of every Swin-B stage."""
+    """K1 and K2 at one W-MSA and one SW-MSA block (K1) and one block (K2)
+    of every Swin-B stage, timed; then the same at Swin-T's block-route
+    stages (rows marked `extra`: checked, untimed, left out of the
+    per-kernel sums)."""
     from preworld_tpu_torch.models.swin import shifted_window_region_ids
     from preworld_tpu_torch.ops import swin_block_pallas as k1
     from preworld_tpu_torch.ops import swin_mlp_pallas as k2
@@ -320,7 +331,9 @@ def check_swin(gen):
     ws, B = 12, 6
     N = ws * ws
     rows = {"fused_swin_attn_block": [], "fused_swin_mlp": []}
-    for C, heads, Hp, Wp, H, W in SWIN_STAGES:
+    stages = [s + (False,) for s in SWIN_STAGES]
+    stages += [s + (True,) for s in SWINT_BLOCK_STAGES]
+    for C, heads, Hp, Wp, H, W, extra in stages:
         x = randn(gen, (B, Hp, Wp, C))
         # pad garbage, random per channel so that its LN1 output is large:
         # the kernel must zero it after LN1
@@ -343,9 +356,12 @@ def check_swin(gen):
                     region, None, heads, ws, H, W, shift)
             r = compare("fused_swin_attn_block", k1.fused_swin_attn_block(*args),
                         k1.fused_swin_attn_block_plain(*args))
-            r["ms"] = cuda_ms(lambda: k1.fused_swin_attn_block(*args))
-            r["plain_ms"] = cuda_ms(lambda: k1.fused_swin_attn_block_plain(*args))
+            if not extra:
+                r["ms"] = cuda_ms(lambda: k1.fused_swin_attn_block(*args))
+                r["plain_ms"] = cuda_ms(
+                    lambda: k1.fused_swin_attn_block_plain(*args))
             r["shape"] = f"B{B} {Hp}x{Wp}x{C} h{heads} shift{shift}"
+            r["extra"] = extra
             M = B * Hp * Wp
             r.update(work(4 * M * C + 8 * C * C + heads * N * N * 4,
                           8 * M * C * C + 4 * M * N * C))
@@ -357,13 +373,93 @@ def check_swin(gen):
         args = (x, ln_w, ln_b, w1, b1, w2, b2)
         r = compare("fused_swin_mlp", k2.fused_swin_mlp(*args),
                     k2.fused_swin_mlp_plain(*args))
-        r["ms"] = cuda_ms(lambda: k2.fused_swin_mlp(*args))
-        r["plain_ms"] = cuda_ms(lambda: k2.fused_swin_mlp_plain(*args))
+        if not extra:
+            r["ms"] = cuda_ms(lambda: k2.fused_swin_mlp(*args))
+            r["plain_ms"] = cuda_ms(lambda: k2.fused_swin_mlp_plain(*args))
         r["shape"] = f"M{B * Hp * Wp} C{C} hidden{4 * C}"
+        r["extra"] = extra
         r.update(work(4 * B * Hp * Wp * C + 16 * C * C,
                       16 * B * Hp * Wp * C * C))
         rows["fused_swin_mlp"].append(r)
     return rows
+
+
+def chain_ms(fn, labels, reps=3) -> dict:
+    """Device ms of each launch of a kernel chain (its GEMM and window-
+    attention kernels, by their place in the chain), median over `reps`
+    profiled calls after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = sorted((e for e in prof.events()
+                 if e.device_type == DeviceType.CUDA
+                 and ("gemm_bf16_kernel" in e.name
+                      or "window_attn_kernel" in e.name)),
+                key=lambda e: e.time_range.start)
+    if len(ev) != reps * len(labels):
+        raise AssertionError(f"chain of {labels}: {len(ev)} kernels in "
+                             f"{reps} calls: {[e.name[:60] for e in ev]}")
+    n = len(labels)
+    return {lab: statistics.median(ev[i * n + k].time_range.elapsed_us()
+                                   for i in range(reps)) / 1e3
+            for k, lab in enumerate(labels)}
+
+
+def check_swin_stages(gen):
+    """The K1 / K2 kernel chains stage by stage at every Swin-B stage (B =
+    6): device ms of the qkv GEMM (LN1 prologue, bias epilogue), the window
+    attention (W-MSA and SW-MSA), the proj GEMM (bias, row scale,
+    residual), fc1 (LN2, bias, GELU) and fc2 (bias, residual), each beside
+    one torch.matmul (cuBLAS) of the same bf16 product without the fused
+    prologue or epilogue: a yardstick the port never calls."""
+    from preworld_tpu_torch.models.swin import shifted_window_region_ids
+    from preworld_tpu_torch.ops import swin_block_pallas as k1
+    from preworld_tpu_torch.ops import swin_mlp_pallas as k2
+
+    bf = torch.bfloat16
+    ws, B = 12, 6
+    out = []
+    for C, heads, Hp, Wp, H, W in SWIN_STAGES:
+        M = B * Hp * Wp
+        x = randn(gen, (B, Hp, Wp, C), 1.0, bf)
+        ln_w, ln_b = 1 + randn(gen, (C,), 0.1), randn(gen, (C,), 0.1)
+        w = {"qkv": randn(gen, (3 * C, C), C ** -0.5, bf),
+             "proj": randn(gen, (C, C), C ** -0.5, bf),
+             "fc1": randn(gen, (4 * C, C), C ** -0.5, bf),
+             "fc2": randn(gen, (C, 4 * C), (4 * C) ** -0.5, bf)}
+        bias = {k: randn(gen, (v.shape[0],), 0.1) for k, v in w.items()}
+        rel_bias = window_bias(gen, ws, heads)
+        region = torch.from_numpy(shifted_window_region_ids(
+            Hp, Wp, ws, ws // 2).astype("int32")).cuda()
+        row = {"stage": f"C{C} h{heads} M{M}"}
+        for shift, reg in ((0, None), (ws // 2, region)):
+            args = (x, ln_w, ln_b, w["qkv"], bias["qkv"], w["proj"],
+                    bias["proj"], rel_bias, reg, None, heads, ws, H, W, shift)
+            t = chain_ms(lambda: k1.fused_swin_attn_block(*args),
+                         ("qkv", "attention", "proj"))
+            row[f"attention_shift{shift}_ms"] = t.pop("attention")
+            for k, v in t.items():  # the GEMMs do the same work at both
+                row.setdefault(f"{k}_ms", []).append(v)
+        row.update(chain_ms(
+            lambda: k2.fused_swin_mlp(x, ln_w, ln_b, w["fc1"], bias["fc1"],
+                                      w["fc2"], bias["fc2"]),
+            ("fc1_ms", "fc2_ms")))
+        row["qkv_ms"] = statistics.mean(row["qkv_ms"])
+        row["proj_ms"] = statistics.mean(row["proj_ms"])
+        xm = x.reshape(M, C)
+        hid = randn(gen, (M, 4 * C), 1.0, bf)
+        for k, a in (("qkv", xm), ("proj", xm), ("fc1", xm), ("fc2", hid)):
+            row[f"{k}_cublas_ms"] = cuda_ms(lambda: torch.matmul(a, w[k].t()))
+        out.append(row)
+        del x, hid, xm
+    return out
 
 
 def grad_stats(got, want) -> dict:
@@ -505,11 +601,13 @@ def window_bias(gen, ws, heads):
     return table[rel_idx].reshape(N, N, heads).permute(2, 0, 1).contiguous()
 
 
-def window_attn_bwd_small_cases(gen):
-    """Untimed K5b / K6b cases beside the flagship shapes, W-MSA and SW-MSA
-    each: windows of 8x8 and 4x4 (N 64 and 16: four warps and one per
-    block) on a 32x48 / 16x24 image of 2 heads, and 199 packed windows of
-    N 144 and 4 heads, whose last group of windows is ragged."""
+def window_attn_small_cases(gen):
+    """Untimed K5 / K6 and K5b / K6b cases beside the flagship shapes,
+    W-MSA and SW-MSA each: windows of 8x8 and 4x4 (N 64 and 16: four warps
+    and one per block) on a 32x48 / 16x24 image of 2 heads, and 199 packed
+    windows of N 144 and 4 heads, whose last group of windows is ragged
+    (the forward and backward cores share their plan of windows per
+    block)."""
     from preworld_tpu_torch.models.swin import (
         shifted_window_mask,
         window_partition,
@@ -576,7 +674,8 @@ def _attn_work(qkv, heads, mask, ws, backward):
 
 
 def check_window_attn(gen):
-    """K5 and K6 against their plain versions, with the SDPA yardstick."""
+    """K5 and K6 against their plain versions, two runs bit-identical,
+    with the SDPA yardstick; then the untimed small and ragged cases."""
     import torch.nn.functional as F
 
     from preworld_tpu_torch.ops import window_attn_pallas as wa
@@ -588,10 +687,25 @@ def check_window_attn(gen):
            "band_window_attention": (wa.band_window_attention,
                                      wa.band_window_attention_plain)}
     rows = {k: [] for k in fns}
+
+    def checked(name, args):
+        kern, plain = fns[name]
+        got = kern(*args)
+        r = compare(name, got, plain(*args))
+        r["bit_identical"] = torch.equal(got, kern(*args))
+        return r
+
+    for name, qkv, bias, mask, heads, ws, shape in window_attn_small_cases(
+            gen):
+        r = checked(name, (qkv, bias, mask, heads, ws))
+        r.update(shape=shape, extra=True)
+        rows[name].append(r)
     for name, qkv, bias, mask, heads, ws, shape in window_attn_cases(gen):
         kern, plain = fns[name]
         args = (qkv, bias, mask, heads, ws)
-        r = compare(name, kern(*args), plain(*args))
+        r = checked(name, args)
+        r["stage"] = f"C{qkv.shape[-1] // 3} h{heads}"
+        r["masked"] = mask is not None
         r["ms"] = cuda_ms(lambda: kern(*args))
         r["plain_ms"] = cuda_ms(lambda: plain(*args))
         q, k, v, am = _sdpa_inputs(*args)
@@ -641,7 +755,7 @@ def check_window_attn_bwd(gen):
         rows[name].append(r)
         del q, k, v, am, do
     for name, qkv, bias, mask, heads, ws, shape in \
-            window_attn_bwd_small_cases(gen):
+            window_attn_small_cases(gen):
         name = name + "_bwd"
         dout = randn(gen, qkv.shape[:-1] + (qkv.shape[-1] // 3,), 1.0,
                      qkv.dtype)
@@ -916,7 +1030,7 @@ def run_flagship():
                 lambda: model.predict(to_device(batches[0], "cuda")))}
 
 
-def profile_call(fn, top: int = 15) -> dict:
+def profile_call(fn, top: int = 25) -> dict:
     """Device time by kernel over one call of fn (torch.profiler), and the
     share of the call's wall time the device was busy."""
     from torch.autograd import DeviceType
@@ -991,7 +1105,7 @@ def check_train_reference(name="train-reference", density_bias=None, **over):
     calib.load_state_dict({k: v.to(torch.bfloat16).to(v.dtype)
                            if v.is_floating_point() else v
                            for k, v in state.items()})
-    _, gc = one_train_step(calib, batch, "cpu")
+    calib_metrics, gc = one_train_step(calib, batch, "cpu")
     total = math.sqrt(sum(float((g ** 2).sum()) for g in gw.values()))
     live = [k for k, g in gw.items() if float(g.norm()) > 1e-4 * total]
 
@@ -1013,6 +1127,8 @@ def check_train_reference(name="train-reference", density_bias=None, **over):
                         for k in want if k != "grad_norm"),
         "grad_norm_rel": abs(got["grad_norm"] - want["grad_norm"])
         / want["grad_norm"],
+        "calib_grad_norm_rel": abs(calib_metrics["grad_norm"]
+                                   - want["grad_norm"]) / want["grad_norm"],
         "global_cos": global_cos, "median_cos": median_cos,
         "calib_global_cos": calib_global, "calib_median_cos": calib_median,
         "worst": {k: cos[k] for k in worst[:5]},
@@ -1356,6 +1472,20 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = {}
     rows.update(phase("kernel K1/K2", lambda: check_swin(gen)) or {})
+    stages = phase("kernel K1/K2 stages", lambda: check_swin_stages(gen))
+    for st in stages or []:
+        for k, what in (("qkv", "qkv GEMM (LN1 prologue, bias)"),
+                        ("proj", "proj GEMM (bias, row scale, residual)"),
+                        ("fc1", "fc1 GEMM (LN2 prologue, bias, GELU)"),
+                        ("fc2", "fc2 GEMM (bias, residual)")):
+            ms, lib = st[f"{k}_ms"], st[f"{k}_cublas_ms"]
+            status("kernel K1/K2 stages",
+                   f"Swin-B {st['stage']} {what}: kernel {ms:.3f} ms, "
+                   f"torch.matmul {lib:.3f} ms ({ms / lib:.2f}x)")
+        status("kernel K1/K2 stages",
+               f"Swin-B {st['stage']} window attention: W-MSA "
+               f"{st['attention_shift0_ms']:.3f} ms, SW-MSA "
+               f"{st['attention_shift6_ms']:.3f} ms")
     rows["plane_sweep_cost_hom"] = phase(
         "kernel K3", lambda: check_cost_volume(gen, flag_cfg))
     rows["plane_sweep_cost"] = phase(
@@ -1370,20 +1500,33 @@ def main() -> int:
         for r in rows.get(name) or []:
             if r is None:
                 continue
-            ok = r["n_bad"] == 0
+            ok = r["n_bad"] == 0 and r.get("bit_identical", True)
             if not ok:
                 failures.append(f"kernel {label} {r['shape']}")
             lib = (f", F.scaled_dot_product_attention {r['library_ms']:.3f} ms"
                    if "library_ms" in r else "")
             if "empty_sample_share" in r:
                 lib += f"; empty samples {r['empty_sample_share']:.4f}"
+            same = (f"; bit-identical over two runs {r['bit_identical']}"
+                    if "bit_identical" in r else "")
+            times = (f"; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
+                     f"ms{lib}" if "ms" in r else "; untimed")
             status(f"kernel {label}",
                    f"{'ok' if ok else 'MISMATCH'} {r['shape']}"
-                   f"{' (extra width)' if r.get('extra') else ''}: max abs err "
+                   f"{' (extra shape)' if r.get('extra') else ''}: max abs err "
                    f"{r['max_abs_err']:.3g}, max rel err {r['max_rel_err']:.3g}"
                    f", {r['n_bad']} of {r['numel']} outside atol {atol} + "
-                   f"rtol {rtol}; kernel {r['ms']:.3f} ms, plain "
-                   f"{r['plain_ms']:.3f} ms{lib}")
+                   f"rtol {rtol}{same}{times}")
+        # K5 / K6: each stage's unmasked and masked time on its own line
+        by_stage = {}
+        for r in rows.get(name) or []:
+            if r is not None and "stage" in r:
+                by_stage.setdefault(r["stage"], {})[r["masked"]] = r
+        for stage, rs in by_stage.items():
+            status(f"kernel {label}", f"stage {stage}: " + "; ".join(
+                f"{'masked' if m else 'unmasked'} kernel {r['ms']:.3f} ms, "
+                f"SDPA {r['library_ms']:.3f} ms"
+                for m, r in sorted(rs.items())))
     torch.cuda.empty_cache()
 
     runs = {}

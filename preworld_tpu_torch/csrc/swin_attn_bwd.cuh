@@ -44,10 +44,13 @@
 
 namespace pw {
 
-constexpr int AB_MAXW = AT_MAXN / 16;  // warps per block, at most
-constexpr int AB_NT8 = AT_MAXN / 8;    // n8 score tiles per strip, at most
-constexpr int AB_MPF = 4;              // mask tiles loaded ahead of use
-constexpr int MASK_NONE = 2;           // beside MASK_REGION / MASK_DENSE: no mask
+constexpr float AT_LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 // Shared-memory layout of the backward block for windows of N tokens.
 // q / k / v / dO tiles are N rows of 64 bytes whose four 16-byte chunks
@@ -72,105 +75,9 @@ struct AttnBwdSmem {
   }
 };
 
-struct AttnBwdPlan {
-  int groups, per;
-};
-
-// windows per block: about 264 (head, group) blocks, two waves of one
-// block per SM at N = 144
-inline AttnBwdPlan attn_bwd_plan(int windows, int heads) {
-  int g = (264 + heads - 1) / heads;
-  if (g > windows) g = windows;
-  if (g < 1) g = 1;
-  const int per = (windows + g - 1) / g;
-  return {(windows + per - 1) / per, per};
-}
-
 // f32 elements of the d rel-bias partial buffer
 inline long long attn_bwd_part_elems(int windows, int heads, int N) {
-  return (long long)heads * attn_bwd_plan(windows, heads).groups * N * N;
-}
-
-// byte offset of 16-byte chunk c of row t in a swizzled 64-byte-row tile
-__device__ __forceinline__ uint32_t swz(int t, int c) {
-  return (uint32_t)(t * 64 + ((c ^ ((t >> 1) & 3)) << 4));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// c += a b, m16n8k16, bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A fragments (16 rows x 32 channels, two k16 steps) of rows [r0, r0 + 16)
-// of a swizzled tile
-__device__ __forceinline__ void load_a32(uint32_t (&a)[2][4], uint32_t tile, int r0, int lane) {
-  const int t = r0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int kc = 0; kc < 2; ++kc) ldsm4(a[kc], tile + swz(t, kc * 2 + (lane >> 4)));
-}
-
-// B fragments of an n8 tile whose columns are rows [n0, n0 + 8) of a
-// swizzled tile (B = tile^T): {b0, b1} of k16 step 0, then of step 1
-__device__ __forceinline__ void load_bt32(uint32_t (&b)[4], uint32_t tile, int n0, int lane) {
-  ldsm4(b, tile + swz(n0 + (lane & 7), lane >> 3));
-}
-
-// B fragments for the k16 step of rows [k0, k0 + 16) of a swizzled tile
-// read as (k, n): b[2 nd + 0/1] for n8 tile nd of its 32 channels
-__device__ __forceinline__ void load_bk16(uint32_t (&b)[8], uint32_t tile, int k0, int lane) {
-  const int t = k0 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    uint32_t r[4];
-    ldsm4t(r, tile + swz(t, half * 2 + (lane >> 4)));
-    b[half * 4 + 0] = r[0];
-    b[half * 4 + 1] = r[1];
-    b[half * 4 + 2] = r[2];
-    b[half * 4 + 3] = r[3];
-  }
+  return (long long)heads * attn_plan(windows, heads).groups * N * N;
 }
 
 // A fragment of a 16 x 16 block of a padded bf16 matrix (rows [r0, r0 +
@@ -191,80 +98,12 @@ __device__ __forceinline__ void load_at16(uint32_t (&a)[4], const bf16* m, int l
   ldsm4t(a, smem_u32(m + (size_t)r * ld + c));
 }
 
-// Rows of a window's tokens with no division per token: the window's
-// origin once, then each token's row from its place in the window.
-struct WinOrigin {
-  size_t base;
-  int r, c;
-};
-
-__device__ __forceinline__ WinOrigin window_origin(const ImageMap& m, int win) {
-  const int per_img = m.nH * m.nW;
-  const int b = win / per_img, wi = win - b * per_img;
-  const int wr = wi / m.nW, wc = wi - wr * m.nW;
-  return {(size_t)b * m.Hp, wr * m.ws + m.shift, wc * m.ws + m.shift};
-}
-
-// ImageMap::row without its divisions: t / ws in f32 (exact for t < 2^16),
-// the roll's wrap as one subtraction
-__device__ __forceinline__ size_t token_row(const ImageMap& m, const WinOrigin& o, int t) {
-  const int i = __float2int_rz(((float)t + 0.5f) * __frcp_rn((float)m.ws));
-  int r = o.r + i, c = o.c + t - i * m.ws;
-  if (r >= m.Hp) r -= m.Hp;
-  if (c >= m.Wp) c -= m.Wp;
-  return (o.base + r) * m.Wp + c;
-}
-
-__device__ __forceinline__ WinOrigin window_origin(const PackedMap& m, int win) {
-  return {(size_t)win * m.N, 0, 0};
-}
-
-__device__ __forceinline__ size_t token_row(const PackedMap&, const WinOrigin& o, int t) {
-  return o.base + t;
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// A 16 x 32 f32 accumulator tile (four n8 tiles), times s, rounded to bf16,
-// to rows rows[0] (the thread's first row) and rows[1] (8 below it) of
-// `dst` (rows of ldd) at column col0: the quad swaps its words so that each
-// thread stores 16 bytes.
-__device__ __forceinline__ void store_tile(const float (&acc)[4][4], float s, bf16* dst,
-                                           size_t ldd, int col0, const size_t (&rows)[2],
-                                           int lane) {
-  const int tig = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    uint32_t w[4], o[4];
-#pragma unroll
-    for (int nd = 0; nd < 4; ++nd)
-      w[nd] = pack_bf16(s * acc[nd][2 * half], s * acc[nd][2 * half + 1]);
-    // thread tig gathers word tig of each quad lane: channels 8 tig..8 tig+7
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int give = (tig - k) & 3, from = (tig + k) & 3;
-      const uint32_t send = give == 0 ? w[0] : give == 1 ? w[1] : give == 2 ? w[2] : w[3];
-      const uint32_t got = __shfl_sync(0xffffffffu, send, (lane & ~3) | from);
-#pragma unroll
-      for (int m = 0; m < 4; ++m)
-        if (m == from) o[m] = got;
-    }
-    *reinterpret_cast<uint4*>(dst + rows[half] * ldd + col0 + tig * 8) =
-        make_uint4(o[0], o[1], o[2], o[3]);
-  }
-}
-
 template <class Map, int MASK>
-__global__ void __launch_bounds__(AB_MAXW * 32, 1)
+__global__ void __launch_bounds__(AT_MAXW * 32, 1)
 window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ dout,
                        const float* __restrict__ rel_bias, const void* __restrict__ mask,
                        bf16* __restrict__ dqkv, float* __restrict__ dbias_part, Map map,
                        int windows, int heads, int C, int N, float scale, int per) {
-  constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ __align__(128) unsigned char smem[];
   const AttnBwdSmem L(N);
   const float* biasS = reinterpret_cast<const float*>(smem + L.bias);
@@ -327,9 +166,9 @@ window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ do
   }
 
   // d rel-bias partial: element (r0 + gq + 8 (e >> 1), 8 j + 2 tig + (e & 1))
-  float dbias[AB_NT8][4];
+  float dbias[AT_NT8][4];
 #pragma unroll
-  for (int j = 0; j < AB_NT8; ++j)
+  for (int j = 0; j < AT_NT8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dbias[j][e] = 0.f;
 
@@ -347,15 +186,15 @@ window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ do
     // staging, and their row maxima; rows r0 + gq (i = 0), r0 + gq + 8 (1)
     float mx[2] = {-INFINITY, -INFINITY};
     {
-      // a dense mask's pairs of the thread's two rows, AB_MPF tiles ahead of
-      // their use (registers cycle through mq[j % AB_MPF])
+      // a dense mask's pairs of the thread's two rows, AT_MPF tiles ahead of
+      // their use (registers cycle through mq[j % AT_MPF])
       const float* mw = nullptr;
-      float2 mq[AB_MPF][2];
+      float2 mq[AT_MPF][2];
       if (dense) {
         mw = static_cast<const float*>(mask) + (size_t)map.mask_win(win) * N * N +
              (size_t)(r0 + gq) * N + 2 * tig;
 #pragma unroll
-        for (int j = 0; j < AB_MPF; ++j)
+        for (int j = 0; j < AT_MPF; ++j)
           if (j < nt8)
 #pragma unroll
             for (int i = 0; i < 2; ++i)
@@ -370,7 +209,7 @@ window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ do
       uint32_t qa[2][4];
       load_a32(qa, Qt, r0, lane);
 #pragma unroll
-      for (int j = 0; j < AB_NT8; ++j) {
+      for (int j = 0; j < AT_NT8; ++j) {
         if (j < nt8) {
           uint32_t kb[4];
           load_bt32(kb, Kt, j * 8, lane);
@@ -383,8 +222,8 @@ window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ do
             const int r = r0 + gq + 8 * i;
             float l0 = s[2 * i] * scale, l1 = s[2 * i + 1] * scale;
             if (dense) {
-              l0 += mq[j % AB_MPF][i].x;
-              l1 += mq[j % AB_MPF][i].y;
+              l0 += mq[j % AT_MPF][i].x;
+              l1 += mq[j % AT_MPF][i].y;
             }
             if (MASK == MASK_REGION) {
               const int2 rc = *reinterpret_cast<const int2*>(reg + c);
@@ -392,17 +231,17 @@ window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ do
               if (rg[i] != rc.y) l1 += -100.f;
             }
             const float2 bv = *reinterpret_cast<const float2*>(biasS + r * L.ld + c);
-            l0 = (l0 + bv.x) * LOG2E;
-            l1 = (l1 + bv.y) * LOG2E;
+            l0 = (l0 + bv.x) * AT_LOG2E;
+            l1 = (l1 + bv.y) * AT_LOG2E;
             Pw[slot + 8 * i * H + 4 * j] = __float_as_uint(l0);
             Dw[slot + 8 * i * H + 4 * j] = __float_as_uint(l1);
             mx[i] = fmaxf(mx[i], fmaxf(l0, l1));
           }
-          if (dense && j + AB_MPF < nt8)
+          if (dense && j + AT_MPF < nt8)
 #pragma unroll
             for (int i = 0; i < 2; ++i)
-              mq[j % AB_MPF][i] =
-                  *reinterpret_cast<const float2*>(mw + (size_t)8 * i * N + 8 * (j + AB_MPF));
+              mq[j % AT_MPF][i] =
+                  *reinterpret_cast<const float2*>(mw + (size_t)8 * i * N + 8 * (j + AT_MPF));
         }
       }
 #pragma unroll
@@ -418,7 +257,7 @@ window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ do
     load_a32(da, Dt, r0, lane);
     float inv[2] = {0.f, 0.f}, Drow[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < AB_NT8; ++j) {
+    for (int j = 0; j < AT_NT8; ++j) {
       if (j < nt8) {
         uint32_t vb[4];
         load_bt32(vb, Vt, j * 8, lane);
@@ -447,7 +286,7 @@ window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ do
     // dS = P o (dP - D), P and dP formed again: into the d-bias partial;
     // P (rounded to bf16 as the forward rounds it) and dS over the logits
 #pragma unroll
-    for (int j = 0; j < AB_NT8; ++j) {
+    for (int j = 0; j < AT_NT8; ++j) {
       if (j < nt8) {
         uint32_t vb[4];
         load_bt32(vb, Vt, j * 8, lane);
@@ -483,7 +322,7 @@ window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ do
 #pragma unroll
       for (int nd = 0; nd < 4; ++nd) dq[nd][0] = dq[nd][1] = dq[nd][2] = dq[nd][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < AB_MAXW; ++kk) {
+      for (int kk = 0; kk < AT_MAXW; ++kk) {
         if (kk < nt) {
           uint32_t a[4], kb[8];
           load_a16(a, dSs, L.ld, r0, kk * 16, lane);
@@ -506,7 +345,7 @@ window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ do
 #pragma unroll
         for (int e = 0; e < 4; ++e) dv[nd][e] = dk[nd][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < AB_MAXW; ++kk) {
+      for (int kk = 0; kk < AT_MAXW; ++kk) {
         if (kk < nt) {
           uint32_t a[4], bb[8];
           load_at16(a, Ps, L.ld, kk * 16, r0, lane);
@@ -527,7 +366,7 @@ window_attn_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ do
 
   float* dbp = dbias_part + ((size_t)g * heads + h) * N * N;
 #pragma unroll
-  for (int j = 0; j < AB_NT8; ++j) {
+  for (int j = 0; j < AT_NT8; ++j) {
     if (j < nt8) {
       const int c = j * 8 + 2 * tig;
 #pragma unroll
@@ -556,7 +395,7 @@ inline cudaError_t window_attn_bwd(const bf16* qkv, const bf16* dout, const floa
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
   if (err != cudaSuccess) return err;
-  const AttnBwdPlan plan = attn_bwd_plan(windows, heads);
+  const AttnPlan plan = attn_plan(windows, heads);
   kern<<<dim3(heads, plan.groups), N / 16 * 32, L.total, stream>>>(
       qkv, dout, rel_bias, mask, dqkv, part, map, windows, heads, C, N, scale, plan.per);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;

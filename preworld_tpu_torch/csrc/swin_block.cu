@@ -9,24 +9,25 @@
 // kernels:
 //   1. LN1 + pad-zeroing + qkv product (gemm.cuh, PRO_LN / EPI_BIAS):
 //      (M, C) -> qkv (M, 3C) bf16, M = B*Hp*Wp in image order;
-//   2. window attention, the core of swin_attn.cuh on the image-layout map
-//      with the roll (window (wr, wc) of the rolled layout: token (i, j) at
-//      image position ((wr ws + i + shift) mod Hp, (wc ws + j + shift) mod
-//      Wp)) and the region-id mask: one block per (image, window, head),
-//      per-warp 16-row strips on tensor cores (wmma); reads qkv and writes
-//      o (M, C) straight in image order, so no window partition / reverse
-//      copies exist;
+//   2. window attention, the forward core of swin_attn.cuh on the
+//      image-layout map with the roll (window (wr, wc) of the rolled
+//      layout: token (i, j) at image position ((wr ws + i + shift) mod Hp,
+//      (wc ws + j + shift) mod Wp)) and the region-id mask (MASK_NONE at
+//      shift 0): one block per (head, group of windows), one warp per
+//      16-row query strip, scores and probabilities in mma.sync registers,
+//      the next window's q, k, v fetched with cp.async; it reads qkv and
+//      writes o (M, C) straight in image order, so no window partition /
+//      reverse copies exist;
 //   3. proj product with a bias + row-scale + residual epilogue
 //      (gemm.cuh, EPI_RESID).
 // The shift mask is rebuilt in-kernel from the (nH*nW, N) region-id table
 // (mask = -100 where ids differ), instead of reading an (nW, N, N) f32 mask.
 //
-// Bound on H100: the two products are compute-bound; the attention step
-// is latency-bound (N = 144 tokens per window, d = 32): per-warp strips
-// keep it free of block-wide barriers after the q/k/v gather, and at
-// 111 KB of shared memory two blocks share an SM. qkv and o round-trip
-// device memory between the kernels, about 5x the read-x / write-out
-// floor. Folding the chain into one kernel is later work.
+// Bound on H100: the two products are compute-bound (synchronous wmma
+// tiles, gemm.cuh); the attention step is bound by the bytes of qkv and o
+// (4 N d bf16 per window and head against 4 N^2 d FLOP). qkv and o
+// round-trip device memory between the kernels, about 5x the read-x /
+// write-out floor. Folding the chain into one kernel is later work.
 #include "swin_attn.cuh"
 
 namespace pw {

@@ -5,19 +5,23 @@
 // (K5, packed windows: qkv (Bn, N, 3C) -> (Bn, N, C), window i masked by
 // mask[i mod nW]) and ::band_window_attention (K6, the padded image layout
 // already rolled: qkv (B, Hp, Wp, 3C) -> (B, Hp, Wp, C), windows row-major,
-// mask (nH nW, N, N)). Both are the forward core of swin_attn.cuh (one
-// block per (window, head), per-warp 16-row strips on tensor cores, f32
-// softmax, bf16 probabilities) with a dense additive f32 mask: K5 through
-// the packed map, K6 through the image map at shift 0 (the caller rolls).
-// The TPU kernels stage windows through VMEM (K6 collapses each ws x ws
-// slab of a band into scratch rows); here each block gathers its window's
-// q, k, v rows straight from device memory with 16-byte loads.
+// mask (nH nW, N, N)). Both are the forward core of swin_attn.cuh with a
+// dense additive f32 mask (a null mask takes its MASK_NONE build): K5
+// through the packed map, K6 through the image map at shift 0 (the caller
+// rolls). The TPU kernels stage windows through VMEM (K6 collapses each
+// ws x ws slab of a band into scratch rows) and read the mask once per
+// window for all heads; here one block takes one head of a group of
+// windows and cp.async-gathers each window's q, k, v rows straight from
+// device memory into shared memory while the window before computes, and
+// the blocks of all heads of a group run side by side, so the mask and the
+// token rows come from L2 after the first head.
 //
 // Bound on H100: per window and head 4 N^2 d FLOP on tensor cores against
 // N (3d + d) bf16 of qkv and output, about 144 FLOP per byte at N = 144:
 // device memory binds the ideal (every qkv row read once, every output
-// written once). The kernel itself is latency-bound on its per-warp
-// strips, with two 111 KB blocks per SM.
+// written once). A dense mask adds N^2 f32 per window and head from L2,
+// read straight into registers a few tiles ahead of its use; scores and
+// probabilities stay in registers (mma.sync fragments, N / 16 warps).
 #include "swin_attn.cuh"
 
 using pw::bf16;

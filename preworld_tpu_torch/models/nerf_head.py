@@ -15,6 +15,13 @@ JAX corner-table gather (`ops/field_sample.py`) and its two tuning fields
 function and are not carried over; nor is the ray split over a device mesh.
 `F.grid_sample`'s backward adds into the field with atomics, so gradients
 differ from run to run in the last bits.
+
+The render keeps the JAX package's residual policy (its
+`save_only_these_names("render_sampled", "render_keep")`): autograd saves
+the (21, R, S) f32 sampled field and the (R, S) bool keep mask of the
+416-step `cumdist_mask` loop, besides the field and the rays; the backward
+recomputes the ray geometry (and from it the sampling grid, 12 R S bytes
+never kept) and the compositing.
 """
 
 from __future__ import annotations
@@ -25,7 +32,6 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..geometry import rays as ray_layout
 from ..losses.voxel import nusc_class_weights
@@ -41,8 +47,9 @@ from ..ops.render import (
 @dataclasses.dataclass(frozen=True)
 class NerfHeadConfig:
     """The JAX `NerfHeadConfig` less `table_dtype` and `bwd_live_cap`.
-    ray_chunk > 0 renders the rays in chunks of that many under
-    `torch.utils.checkpoint` (a memory fallback); 0 renders densely."""
+    ray_chunk > 0 renders the rays in chunks of that many (a memory
+    fallback: each chunk's forward and backward intermediates live one at
+    a time); 0 renders densely."""
 
     spec: RaySamplingSpec = RaySamplingSpec()
     use_depth_sup: bool = True
@@ -74,16 +81,11 @@ def render_scene(density, semantic, color, rays_o, rays_d, bda,
         ray_mask = torch.ones((R,), dtype=torch.float32, device=rays_o.device)
     field = torch.cat([density[..., None], semantic, color], dim=-1)
     field = field.permute(3, 0, 1, 2)[None].contiguous()  # (1, 21, X, Y, Z)
-    if chunk == R:
-        out = _render_rays(field, rays_o, rays_d, bda, cfg, ray_mask)
-    else:
-        parts = [checkpoint(_render_rays, field, rays_o[i:i + chunk],
-                            rays_d[i:i + chunk], bda, cfg,
-                            ray_mask[i:i + chunk], use_reentrant=False)
-                 for i in range(0, R, chunk)]
-        out = {k: (sum(p[k] for p in parts) if k.startswith("dist_")
-                   else torch.cat([p[k] for p in parts]))
-               for k in parts[0]}
+    parts = [dict(zip(_OUT_KEYS, _RenderRays.apply(
+        field, rays_o[i:i + chunk], rays_d[i:i + chunk], bda,
+        ray_mask[i:i + chunk], cfg))) for i in range(0, R, chunk)]
+    out = {k: (sum(p[k] for p in parts) if k.startswith("dist_")
+               else torch.cat([p[k] for p in parts])) for k in _OUT_KEYS}
     # distortion (flatten_eff_distloss): interval 1 / n_max with n_max the
     # surviving supervised samples scene-wide, normalised by the number of
     # supervised rays
@@ -94,21 +96,82 @@ def render_scene(density, semantic, color, rays_o, rays_d, bda,
     return out
 
 
-def _render_rays(field, rays_o, rays_d, bda, cfg, ray_mask):
-    spec = cfg.spec
-    pts, inner, t = sample_ray_points(rays_o, rays_d, bda, spec)
-    keep = cumdist_mask(pts, inner, spec)
+_OUT_KEYS = ("render_depth", "render_semantic", "render_color",
+             "alphainv_last", "dist_bi", "dist_w2", "dist_live")
+
+
+class _RenderRays(torch.autograd.Function):
+    """The rays' render against a (1, 21, X, Y, Z) field, differentiable
+    in the field only (rays, bda and ray mask are data), saving the sampled
+    field and the keep mask; returns the `_OUT_KEYS` values."""
+
+    @staticmethod
+    def forward(ctx, field, rays_o, rays_d, bda, ray_mask, cfg):
+        if any(ctx.needs_input_grad[1:5]):
+            raise ValueError("render_scene: rays, bda and ray_mask take no "
+                             "gradient")
+        pts, inner, t = sample_ray_points(rays_o, rays_d, bda, cfg.spec)
+        keep = cumdist_mask(pts, inner, cfg.spec)
+        sampled = F.grid_sample(field, _field_grid(pts, cfg.spec),
+                                mode="bilinear", padding_mode="zeros",
+                                align_corners=True)[0, ..., 0]  # (21, R, S)
+        out, _ = _composite(sampled[0], sampled[1:], keep, t, ray_mask, cfg)
+        ctx.save_for_backward(field, sampled, keep, rays_o, rays_d, bda,
+                              ray_mask)
+        ctx.cfg = cfg
+        ctx.mark_non_differentiable(out["dist_live"])
+        return tuple(out[k] for k in _OUT_KEYS)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        field, sampled, keep, rays_o, rays_d, bda, ray_mask = ctx.saved_tensors
+        spec = ctx.cfg.spec
+        g = dict(zip(_OUT_KEYS, grads))
+        t = torch.from_numpy(spec.t_midpoints).to(sampled.device)
+        with torch.enable_grad():
+            dens = sampled[0].detach().requires_grad_(True)
+            out, weights = _composite(dens, sampled[1:], keep, t, ray_mask,
+                                      ctx.cfg)
+            outs, cts = zip(*[(out[k], g[k]) for k in _OUT_KEYS
+                              if out[k].requires_grad])
+            d_dens, = torch.autograd.grad(outs, dens, cts)
+        # the samples' gradient overwrites the saved samples, which nothing
+        # reads any more: no second (21, R, S) buffer. Semantic and colour
+        # enter the render linearly (sum over s of weights * value), so
+        # their rows are weights times the cotangent.
+        weights = weights.detach()
+        nsem = g["render_semantic"].shape[1]
+        sampled[0] = d_dens
+        torch.mul(weights[None], g["render_semantic"].t()[..., None],
+                  out=sampled[1:1 + nsem])
+        torch.mul(weights[None], g["render_color"].t()[..., None],
+                  out=sampled[1 + nsem:])
+        del out, outs, weights, d_dens
+        pts, _, _ = sample_ray_points(rays_o, rays_d, bda, spec)
+        d_field, _ = torch.ops.aten.grid_sampler_3d_backward(
+            sampled[None, ..., None], field, _field_grid(pts, spec),
+            0, 0, True, [True, False])  # bilinear, zeros, align_corners
+        return d_field, None, None, None, None, None
+
+
+def _field_grid(pts, spec):
+    """grid_sample's (1, R, S, 1, 3) grid of the normalised points, as
+    (z, y, x)."""
     lo = torch.from_numpy(spec.xyz_min).to(pts.device)
     span = torch.from_numpy(spec.xyz_max - spec.xyz_min).to(pts.device)
     pts_norm = (pts - lo) / span * 2.0 - 1.0
     R, S = pts.shape[:2]
-    grid = pts_norm.flip(-1).reshape(1, R, S, 1, 3)
-    sampled = F.grid_sample(field, grid, mode="bilinear", padding_mode="zeros",
-                            align_corners=True)[0, ..., 0]  # (21, R, S)
-    nsem = field.shape[1] - 4
-    dens = sampled[0]
-    sem = sampled[1:1 + nsem]
-    col = sampled[1 + nsem:]
+    return pts_norm.flip(-1).reshape(1, R, S, 1, 3)
+
+
+def _composite(dens, values, keep, t, ray_mask, cfg):
+    """Depth, semantic and colour of the rays from their sampled density
+    (R, S) and semantic + colour values (n + 3, R, S), keep mask (R, S) and
+    sample distances t (S,), and the distortion partial sums; and the
+    compositing weights (R, S)."""
+    spec = cfg.spec
+    sem = values[:-3]
+    col = values[-3:]
 
     alpha = raw2alpha(dens, spec.act_shift, interval=0.5)
     if cfg.fast_color_thres > 0:
@@ -140,7 +203,7 @@ def _render_rays(field, rays_o, rays_d, bda, cfg, ray_mask):
         "dist_bi": (w * (sb * w_prefix - wm_prefix)).sum(),
         "dist_w2": (w * w).sum(),
         "dist_live": (live * ray_mask[:, None]).sum(),
-    }
+    }, weights
 
 
 def _weighted_ce(logits, targets, class_w, mask):

@@ -109,7 +109,8 @@ def _check(qkv, heads, N, name):
 
 def _operands(qkv, bias, mask, heads, N, name):
     """bias as contiguous f32 (heads*N*N,), mask as contiguous f32 (nW, N, N)
-    on qkv's device, or None."""
+    on qkv's device, or None; the kernels read the mask in 8-byte pairs,
+    so a view that starts off a 16-byte boundary is copied."""
     rb = _cuda.f32(bias, "bias", heads * N * N)
     if mask is None:
         return rb, None
@@ -117,7 +118,7 @@ def _operands(qkv, bias, mask, heads, N, name):
     if m.dim() != 3 or tuple(m.shape[1:]) != (N, N):
         raise ValueError(f"{name}: mask of shape {tuple(m.shape)}, expected "
                          f"(nW, {N}, {N})")
-    return rb, m
+    return rb, m if m.data_ptr() % 16 == 0 else m.clone()
 
 
 def fused_window_attention(qkv, bias, mask, heads, window_g=8):
@@ -165,12 +166,10 @@ def band_window_attention(qkv, bias, mask, heads, ws):
     return out
 
 
-def _bwd_buffers(qkv, mask, dout, heads, windows, N):
+def _bwd_buffers(qkv, dout, heads, windows, N):
     """The backward's operands and outputs: dout as bf16, dqkv, drel and the
-    d-bias scratch; the mask, read in 8-byte pairs, must be aligned."""
+    d-bias scratch."""
     dev = qkv.device
-    if mask is not None:
-        _cuda.require(mask, "mask", torch.float32)
     dout = _cuda.require(dout.to(torch.bfloat16).contiguous(), "dout",
                          torch.bfloat16, qkv.shape[:-1] + (qkv.shape[-1] // 3,))
     n_part = _cuda.lib().pw_window_attn_bwd_part_elems(windows, heads, N)
@@ -187,7 +186,7 @@ def fused_window_attention_bwd(qkv, bias, mask, dout, heads, window_g=8):
     Bn, N, C = qkv.shape[0], qkv.shape[1], qkv.shape[2] // 3
     _check(qkv, heads, N, "K5b")
     rb, m = _operands(qkv, bias, mask, heads, N, "K5b")
-    dout, dqkv, drel, part = _bwd_buffers(qkv, m, dout, heads, Bn, N)
+    dout, dqkv, drel, part = _bwd_buffers(qkv, dout, heads, Bn, N)
     rc = _cuda.lib().pw_window_attn_packed_bwd(
         qkv.data_ptr(), rb.data_ptr(), _cuda.ptr(m), dout.data_ptr(),
         dqkv.data_ptr(), drel.data_ptr(), part.data_ptr(), Bn, N,
@@ -209,8 +208,7 @@ def band_window_attention_bwd(qkv, bias, mask, dout, heads, ws):
     _check(qkv, heads, N, "K6b")
     rb, m = _operands(qkv, bias, mask, heads, N, "K6b")
     windows = B * (Hp // ws) * (Wp // ws)
-    dout, dqkv, drel, part = _bwd_buffers(qkv, m, dout, heads, windows,
-                                            N)
+    dout, dqkv, drel, part = _bwd_buffers(qkv, dout, heads, windows, N)
     rc = _cuda.lib().pw_window_attn_band_bwd(
         qkv.data_ptr(), rb.data_ptr(), _cuda.ptr(m), dout.data_ptr(),
         dqkv.data_ptr(), drel.data_ptr(), part.data_ptr(), B, Hp, Wp, ws, C,

@@ -1,0 +1,117 @@
+"""Run two or more source trees of this repository in turns on one card.
+
+    python3 -m preworld_tpu_torch.tools.tree_turns TREE [TREE ...]
+
+Each TREE is the root of a checkout of this repository (for example an
+unpacked `git archive` of another commit). Each runs in its own process
+from its root, in the order given (A B B A cancels drift between the
+first and the last runs), so each tree builds and runs its own code:
+  * kernels: the tree's `chip_smoke.check_swin` and
+    `chip_smoke.check_window_attn`, the Swin kernels at the flagship
+    shapes; per kernel (launch-counter key) the kernel ms summed over
+    those shapes and, where the check times one, the summed
+    `F.scaled_dot_product_attention` yardstick;
+  * render: `nerf_head_losses` of 38400 rays on a 200x200x16 field (the
+    per-stage bench's render, its density raised by 9 so that opacities
+    are ~5e-3), forward and gradient in the three fields: the losses, the
+    peak device bytes above the inputs, and the gradients' rel-L2 and
+    cosine against the first tree's (through a file in a temporary
+    directory).
+First line: the card's name and power limit; then one JSON line per turn.
+A card is required.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import torch
+
+_RUN = r"""
+import json, sys
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke as cs
+from preworld_tpu_torch.models.nerf_head import NerfHeadConfig, nerf_head_losses
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+gen = torch.Generator(device="cuda").manual_seed(0)
+rows = dict(cs.check_swin(gen))
+rows.update(cs.check_window_attn(gen))
+kernels = {}
+for name, rs in rows.items():
+    rs = [r for r in rs if not r.get("extra")]
+    kernels[name] = {"ms": sum(r["ms"] for r in rs)}
+    if all("library_ms" in r for r in rs):
+        kernels[name]["library_ms"] = sum(r["library_ms"] for r in rs)
+
+rng = np.random.default_rng(0)
+R, X, Y, Z = 38400, 200, 200, 16
+fields = [rng.normal(size=(1, X, Y, Z)) + 9.0,
+          rng.normal(size=(1, X, Y, Z, 17)), rng.normal(size=(1, X, Y, Z, 3))]
+rays = np.zeros((1, R, 16), np.float32)
+rays[..., 2] = rng.uniform(1, 40, (1, R))
+rays[..., 3] = rng.integers(0, 17, (1, R))
+rays[..., 4:7] = rng.uniform(-2, 2, (1, R, 3))
+rays[..., 7:10] = rng.normal(size=(1, R, 3))
+rays[..., 13:16] = rng.uniform(0, 1, (1, R, 3))
+ins = [torch.from_numpy(a.astype(np.float32)).cuda().requires_grad_(True)
+       for a in fields]
+rays = torch.from_numpy(rays).cuda()
+bda = torch.eye(3, device="cuda")[None]
+torch.cuda.synchronize()
+base = torch.cuda.memory_allocated()
+torch.cuda.reset_peak_memory_stats()
+losses = nerf_head_losses(*ins, rays, bda, NerfHeadConfig())
+grads = torch.autograd.grad(sum(losses.values()), ins)
+torch.cuda.synchronize()
+peak = torch.cuda.max_memory_allocated() - base
+torch.save([g.cpu() for g in grads], sys.argv[1])
+print(json.dumps({"kernels": kernels, "render": {
+    "losses": {k: float(v) for k, v in losses.items()},
+    "peak_bytes_above_inputs": peak}}))
+"""
+
+
+def main(argv=None) -> int:
+    trees = sys.argv[1:] if argv is None else argv
+    if not trees:
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("tree_turns: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        first = None
+        for i, tree in enumerate(trees):
+            path = os.path.join(tmp, f"grads{i}.pt")
+            proc = subprocess.run([sys.executable, "-c", _RUN, path],
+                                  cwd=tree, capture_output=True, text=True)
+            if proc.returncode != 0:
+                print(proc.stdout[-4000:] + proc.stderr[-4000:],
+                      file=sys.stderr)
+                return 1
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            grads = torch.load(path)
+            first = first or grads
+            res["render"]["grads_vs_first"] = [
+                {"rel_l2": float((g - f).norm() / f.norm()),
+                 "cosine": float(torch.nn.functional.cosine_similarity(
+                     g.reshape(-1).double(), f.reshape(-1).double(), dim=0))}
+                for g, f in zip(grads, first)]
+            print(json.dumps({"turn": i, "tree": tree, **res}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

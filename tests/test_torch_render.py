@@ -3,8 +3,10 @@
 `ops/render.py`: `sample_ray_points`, `cumdist_mask` (exact),
 `raw2alpha` and `alpha2weight` with the early exit both firing and not, at
 1e-6, and `alpha2weight`'s gradient against `jax.grad`.
-`models/nerf_head.py`: `render_scene` dense and in checkpointed ray chunks,
-and the five `nerf_head_losses` and their gradients in the density,
+`models/nerf_head.py`: `render_scene` dense and in ray chunks, what its
+autograd graph keeps (the JAX residual policy: the sampled field and the
+keep mask, never the mask loop again in the backward), and the five
+`nerf_head_losses` and their gradients in the density,
 semantic and colour fields against `jax.grad`, at 1e-5: values at rtol
 1e-5 (with an atol of 1e-5 of the largest magnitude), gradients at rel-L2
 1e-5 (the two backward passes add the field's corner contributions in
@@ -30,6 +32,7 @@ import torch
 from preworld_tpu.models import nerf_head as jax_nerf
 from preworld_tpu.ops import render as jax_render
 from preworld_tpu_torch.data import tiny_nerf_config
+from preworld_tpu_torch.models import nerf_head
 from preworld_tpu_torch.models.nerf_head import (
     nerf_head_losses,
     nusc_class_weights,
@@ -164,6 +167,64 @@ def test_render_scene_matches_jax(scene, ray_chunk):
     # about half of the rays exit early, the rest pass through
     last = got["alphainv_last"].detach().numpy()
     assert 0.2 < (last < 1e-3).mean() < 0.8
+
+
+def _render_inputs(scene, ray_chunk):
+    """Scene 1's fields (differentiable) and the rest of render_scene's
+    arguments."""
+    density, semantic, color, rays, bda = scene
+    mask = ((rays[1, :, 2] > 0) & (rays[1, :, 2] <= CFG.max_depth))
+    fields = [_t(a[1]).requires_grad_(True) for a in (density, semantic, color)]
+    return fields, (_t(rays[1, :, 4:7]), _t(rays[1, :, 7:10]), _t(bda[1]),
+                    dataclasses.replace(CFG, ray_chunk=ray_chunk),
+                    _t(mask.astype(np.float32)))
+
+
+@pytest.mark.parametrize("ray_chunk", [0, 32])
+def test_render_scene_saves_only_its_residuals(scene, ray_chunk):
+    """Autograd keeps the (21, R, S) f32 sampled field and the (R, S) bool
+    keep mask (the JAX `save_only_these_names("render_sampled",
+    "render_keep")`), besides the field and the rays it was given and the
+    scalars of the distortion reduction: each storage counted once."""
+    fields, (ro, rd, bda, cfg, mask) = _render_inputs(scene, ray_chunk)
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        saved[st.data_ptr()] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        render_scene(*fields, ro, rd, bda, cfg, mask)
+    S, n = SPEC.num_samples, 21
+    residuals = n * R * S * 4 + R * S
+    inputs = n * X * Y * Z * 4 + sum(t.untyped_storage().nbytes()
+                                     for t in (ro, rd, bda, mask))
+    assert sum(saved.values()) <= residuals + inputs + 256
+
+
+@pytest.mark.parametrize("ray_chunk", [0, 32])
+def test_render_backward_skips_the_mask_loop(scene, ray_chunk, monkeypatch):
+    """The backward reruns no `cumdist_mask` (its keep mask is saved), and
+    the chunked render's field gradients are the dense render's."""
+    calls = []
+
+    def counted(*args):
+        calls.append(1)
+        return render.cumdist_mask(*args)
+
+    monkeypatch.setattr(nerf_head, "cumdist_mask", counted)
+    fields, rest = _render_inputs(scene, ray_chunk)
+    out = render_scene(*fields, *rest)
+    forward_calls = len(calls)
+    assert forward_calls == (R // ray_chunk if ray_chunk else 1)
+    sum(v.sum() for v in out.values()).backward()
+    assert len(calls) == forward_calls
+    dense, rest = _render_inputs(scene, 0)
+    sum(v.sum() for v in render_scene(*dense, *rest).values()).backward()
+    for a, b in zip(fields, dense):
+        assert float(a.grad.abs().max()) > 0
+        assert _rel_l2(a.grad.numpy(), b.grad.numpy()) < 1e-6
 
 
 def test_nerf_head_losses_and_grads_match_jax(scene):

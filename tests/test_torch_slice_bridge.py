@@ -225,3 +225,13 @@ def test_bench_parts_stages_run_on_the_cpu():
     assert bench_parts.card_line(cpu) == "cpu"
     if not torch.cuda.is_available():
         assert bench_parts.main(["cost_volume"]) == 2
+
+
+def test_tree_turns_needs_trees_and_a_card():
+    """The turns tool prints its usage without trees and, with no card,
+    fails rather than time anything on the CPU."""
+    from preworld_tpu_torch.tools import tree_turns
+
+    assert tree_turns.main([]) == 2
+    if not torch.cuda.is_available():
+        assert tree_turns.main(["."]) == 2
