@@ -13,11 +13,16 @@ fallback to the CPU or to a kernel's plain version:
              the flagship shapes (K3 also at 256 channels; K7 at the
              shapes of the per-stage bench's cost volume, and at 256
              channels; K1 / K2 also, untimed, at Swin-T's block-route
-             stages), within the stated tolerance; both timed.
+             stages), within the stated tolerance; both timed. K1 / K2
+             bit-identical over two runs, and K1's pad check: a case with
+             ln_b at scale 1 that a prologue leaving pad tokens at ln_b
+             instead of 0 would fail (the plain version fed that decoy
+             must fall outside the tolerance).
   kernel K1/K2 stages  the K1 / K2 chains launch by launch at every Swin-B
-             stage (qkv, attention, proj; fc1, fc2; device ms from
-             torch.profiler), each GEMM beside one torch.matmul of the same
-             bf16 product (cuBLAS, a yardstick the port never calls).
+             stage (ln_stats, qkv, attention, proj; ln_stats, fc1, fc2;
+             device ms from torch.profiler), each GEMM beside its bound
+             and one torch.matmul of the same bf16 product (cuBLAS, a
+             yardstick the port never calls).
   reference  a small config (flagship widths, 2 Swin blocks per stage,
              128x352 input, 2 cameras, 20x20x8 grid) runs on the card in
              bf16 through the kernels and on the CPU in f32 through the plain
@@ -318,11 +323,58 @@ def bound(rows) -> tuple:
 
 # ----------------------------------------------------------------- kernels
 
+def swin_input(gen, B, Hp, Wp, C, H, W):
+    """x (B, Hp, Wp, C) bf16 with N(0, 1) tokens and pad garbage, random per
+    channel so that its LN1 output is large: K1 must zero it after LN1."""
+    x = randn(gen, (B, Hp, Wp, C))
+    garbage = 37.0 + randn(gen, (B, Hp, Wp, C), 10.0)
+    x[:, H:] = garbage[:, H:]
+    x[:, :, W:] = garbage[:, :, W:]
+    return x.to(torch.bfloat16).contiguous()
+
+
+def k1_pad_case(gen, k1):
+    """K1 at Swin-B stage 3, SW-MSA, with ln_b drawn at scale 1: the pad
+    check. A prologue that left pad tokens at ln_b (LN with rstd 0) rather
+    than 0 would move the real tokens' outputs through the pad keys and
+    values. The plain version fed that decoy (pad rows of x set to 0, whose
+    LN output is ln_b, and no pad mask) must fall outside K1's tolerance
+    on the real tokens (`pad_decoy_n_bad` > 0), so the case can tell."""
+    from preworld_tpu_torch.models.swin import shifted_window_region_ids
+
+    bf = torch.bfloat16
+    ws, B = 12, 6
+    C, heads, Hp, Wp, H, W = SWIN_STAGES[3]
+    shift = ws // 2
+    x = swin_input(gen, B, Hp, Wp, C, H, W)
+    ln_w, ln_b = 1 + randn(gen, (C,), 0.1), randn(gen, (C,), 1.0)
+    region = torch.from_numpy(shifted_window_region_ids(
+        Hp, Wp, ws, shift).astype("int32")).cuda()
+    args = (x, ln_w, ln_b, randn(gen, (3 * C, C), C ** -0.5, bf),
+            randn(gen, (3 * C,), 0.1), randn(gen, (C, C), C ** -0.5, bf),
+            randn(gen, (C,), 0.1), window_bias(gen, ws, heads), region, None,
+            heads, ws, H, W, shift)
+    got = k1.fused_swin_attn_block(*args)
+    want = k1.fused_swin_attn_block_plain(*args)
+    r = compare("fused_swin_attn_block", got, want)
+    r["bit_identical"] = torch.equal(got, k1.fused_swin_attn_block(*args))
+    decoy_x = torch.zeros_like(x)
+    decoy_x[:, :H, :W] = x[:, :H, :W]
+    decoy = k1.fused_swin_attn_block_plain(
+        decoy_x, *args[1:12], Hp, Wp, shift)
+    r["pad_decoy_n_bad"] = compare("fused_swin_attn_block",
+                                   decoy[:, :H, :W], want[:, :H, :W])["n_bad"]
+    r["shape"] = f"B{B} {Hp}x{Wp}x{C} h{heads} shift{shift} ln_b scale 1"
+    r["extra"] = True
+    return r
+
+
 def check_swin(gen):
     """K1 and K2 at one W-MSA and one SW-MSA block (K1) and one block (K2)
-    of every Swin-B stage, timed; then the same at Swin-T's block-route
-    stages (rows marked `extra`: checked, untimed, left out of the
-    per-kernel sums)."""
+    of every Swin-B stage, timed, each run twice for bit-identity; then the
+    same at Swin-T's block-route stages and K1's pad check (`k1_pad_case`)
+    (rows marked `extra`: checked, untimed, left out of the per-kernel
+    sums)."""
     from preworld_tpu_torch.models.swin import shifted_window_region_ids
     from preworld_tpu_torch.ops import swin_block_pallas as k1
     from preworld_tpu_torch.ops import swin_mlp_pallas as k2
@@ -334,13 +386,7 @@ def check_swin(gen):
     stages = [s + (False,) for s in SWIN_STAGES]
     stages += [s + (True,) for s in SWINT_BLOCK_STAGES]
     for C, heads, Hp, Wp, H, W, extra in stages:
-        x = randn(gen, (B, Hp, Wp, C))
-        # pad garbage, random per channel so that its LN1 output is large:
-        # the kernel must zero it after LN1
-        garbage = 37.0 + randn(gen, (B, Hp, Wp, C), 10.0)
-        x[:, H:] = garbage[:, H:]
-        x[:, :, W:] = garbage[:, :, W:]
-        x = x.to(bf).contiguous()
+        x = swin_input(gen, B, Hp, Wp, C, H, W)
         ln_w, ln_b = 1 + randn(gen, (C,), 0.1), randn(gen, (C,), 0.1)
         wqkv = randn(gen, (3 * C, C), C ** -0.5, bf)
         bqkv = randn(gen, (3 * C,), 0.1)
@@ -354,8 +400,11 @@ def check_swin(gen):
                     Hp, Wp, ws, shift).astype("int32")).cuda()
             args = (x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, rel_bias,
                     region, None, heads, ws, H, W, shift)
-            r = compare("fused_swin_attn_block", k1.fused_swin_attn_block(*args),
+            got = k1.fused_swin_attn_block(*args)
+            r = compare("fused_swin_attn_block", got,
                         k1.fused_swin_attn_block_plain(*args))
+            r["bit_identical"] = torch.equal(
+                got, k1.fused_swin_attn_block(*args))
             if not extra:
                 r["ms"] = cuda_ms(lambda: k1.fused_swin_attn_block(*args))
                 r["plain_ms"] = cuda_ms(
@@ -371,8 +420,9 @@ def check_swin(gen):
         w2 = randn(gen, (C, 4 * C), (4 * C) ** -0.5, bf)
         b2 = randn(gen, (C,), 0.1)
         args = (x, ln_w, ln_b, w1, b1, w2, b2)
-        r = compare("fused_swin_mlp", k2.fused_swin_mlp(*args),
-                    k2.fused_swin_mlp_plain(*args))
+        got = k2.fused_swin_mlp(*args)
+        r = compare("fused_swin_mlp", got, k2.fused_swin_mlp_plain(*args))
+        r["bit_identical"] = torch.equal(got, k2.fused_swin_mlp(*args))
         if not extra:
             r["ms"] = cuda_ms(lambda: k2.fused_swin_mlp(*args))
             r["plain_ms"] = cuda_ms(lambda: k2.fused_swin_mlp_plain(*args))
@@ -381,43 +431,64 @@ def check_swin(gen):
         r.update(work(4 * B * Hp * Wp * C + 16 * C * C,
                       16 * B * Hp * Wp * C * C))
         rows["fused_swin_mlp"].append(r)
+    rows["fused_swin_attn_block"].append(k1_pad_case(gen, k1))
     return rows
 
 
-def chain_ms(fn, labels, reps=3) -> dict:
-    """Device ms of each launch of a kernel chain (its GEMM and window-
-    attention kernels, by their place in the chain), median over `reps`
-    profiled calls after a warm-up call."""
+def chain_ms(fn, labels, reps=3, tries=3) -> dict:
+    """Device ms of each launch of a kernel chain, median over `reps` whole
+    chains profiled after a warm-up call. `labels` pairs each launch's
+    label with a piece of its kernel's name, in chain order, the first
+    unlike the rest. The profiler can drop records (seen: the first and
+    last launches of three profiled calls), so it profiles `reps` + 2
+    calls, reads only runs of records that match the whole chain, and
+    tries again, `tries` times in all, if fewer than `reps` remain."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    n = len(labels)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = sorted((e for e in prof.events()
-                 if e.device_type == DeviceType.CUDA
-                 and ("gemm_bf16_kernel" in e.name
-                      or "window_attn_kernel" in e.name)),
-                key=lambda e: e.time_range.start)
-    if len(ev) != reps * len(labels):
-        raise AssertionError(f"chain of {labels}: {len(ev)} kernels in "
-                             f"{reps} calls: {[e.name[:60] for e in ev]}")
-    n = len(labels)
-    return {lab: statistics.median(ev[i * n + k].time_range.elapsed_us()
-                                   for i in range(reps)) / 1e3
-            for k, lab in enumerate(labels)}
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps + 2):
+                fn()
+            torch.cuda.synchronize()
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and any(k in e.name for _, k in labels)),
+                    key=lambda e: e.time_range.start)
+        chains, i = [], 0
+        while i + n <= len(ev):
+            if all(k in e.name for (_, k), e in zip(labels, ev[i:i + n])):
+                chains.append(ev[i:i + n])
+                i += n
+            else:
+                i += 1
+        if len(chains) >= reps:
+            return {lab: statistics.median(c[k].time_range.elapsed_us()
+                                           for c in chains[:reps]) / 1e3
+                    for k, (lab, _) in enumerate(labels)}
+    raise AssertionError(f"chain of {labels}: {len(chains)} whole chains in "
+                         f"{[e.name[:60] for e in ev]}")
+
+
+def gemm_work(k: str, M: int, C: int) -> dict:
+    """Bytes (A, W, the output and the residual, each once) and operations
+    of one of the K1 / K2 products at M rows and width C."""
+    n, kd, resid = {"qkv": (3 * C, C, 0), "proj": (C, C, 1),
+                    "fc1": (4 * C, C, 0), "fc2": (C, 4 * C, 1)}[k]
+    return work(2 * (M * kd + n * kd + M * n + resid * M * n), 2 * M * n * kd)
 
 
 def check_swin_stages(gen):
     """The K1 / K2 kernel chains stage by stage at every Swin-B stage (B =
-    6): device ms of the qkv GEMM (LN1 prologue, bias epilogue), the window
-    attention (W-MSA and SW-MSA), the proj GEMM (bias, row scale,
-    residual), fc1 (LN2, bias, GELU) and fc2 (bias, residual), each beside
-    one torch.matmul (cuBLAS) of the same bf16 product without the fused
+    6): device ms of the LN statistics (LN1, LN2), the qkv GEMM (LN1
+    prologue, bias epilogue), the window attention (W-MSA and SW-MSA), the
+    proj GEMM (bias, row scale, residual), fc1 (LN2, bias, GELU) and fc2
+    (bias, residual), each GEMM beside its bound (`gemm_work`) and one
+    torch.matmul (cuBLAS) of the same bf16 product without the fused
     prologue or epilogue: a yardstick the port never calls."""
     from preworld_tpu_torch.models.swin import shifted_window_region_ids
     from preworld_tpu_torch.ops import swin_block_pallas as k1
@@ -443,20 +514,25 @@ def check_swin_stages(gen):
             args = (x, ln_w, ln_b, w["qkv"], bias["qkv"], w["proj"],
                     bias["proj"], rel_bias, reg, None, heads, ws, H, W, shift)
             t = chain_ms(lambda: k1.fused_swin_attn_block(*args),
-                         ("qkv", "attention", "proj"))
+                         (("ln1", "ln_stats_kernel"),
+                          ("qkv", "gemm_sm90_kernel"),
+                          ("attention", "window_attn_kernel"),
+                          ("proj", "gemm_sm90_kernel")))
             row[f"attention_shift{shift}_ms"] = t.pop("attention")
-            for k, v in t.items():  # the GEMMs do the same work at both
+            for k, v in t.items():  # the rest do the same work at both
                 row.setdefault(f"{k}_ms", []).append(v)
-        row.update(chain_ms(
+        row.update({f"{k}_ms": v for k, v in chain_ms(
             lambda: k2.fused_swin_mlp(x, ln_w, ln_b, w["fc1"], bias["fc1"],
                                       w["fc2"], bias["fc2"]),
-            ("fc1_ms", "fc2_ms")))
-        row["qkv_ms"] = statistics.mean(row["qkv_ms"])
-        row["proj_ms"] = statistics.mean(row["proj_ms"])
+            (("ln2", "ln_stats_kernel"), ("fc1", "gemm_sm90_kernel"),
+             ("fc2", "gemm_sm90_kernel"))).items()})
+        for k in ("ln1", "qkv", "proj"):
+            row[f"{k}_ms"] = statistics.mean(row[f"{k}_ms"])
         xm = x.reshape(M, C)
         hid = randn(gen, (M, 4 * C), 1.0, bf)
         for k, a in (("qkv", xm), ("proj", xm), ("fc1", xm), ("fc2", hid)):
             row[f"{k}_cublas_ms"] = cuda_ms(lambda: torch.matmul(a, w[k].t()))
+            row[f"{k}_bound_ms"] = bound([gemm_work(k, M, C)])[0]
         out.append(row)
         del x, hid, xm
     return out
@@ -1424,6 +1500,36 @@ def run_bench_parts():
             "samples_per_ray": spec.num_samples}
 
 
+def sass_counts(lib_path: str) -> dict:
+    """Per instance of the Hopper GEMM (`gemm_sm90_kernel<prologue,
+    epilogue, tile width>`) in the built library, its wgmma (HGMMA), TMA
+    load (UTMALDG) and TMA store (UTMASTG) instructions, from `cuobjdump
+    -sass` (the toolkit's, beside nvcc); raises if an instance lacks
+    wgmma or TMA loads."""
+    import re
+    from pathlib import Path
+
+    from preworld_tpu_torch.ops import _cuda
+
+    tool = str(Path(_cuda._nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    counts, cur = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            m = re.search(r"gemm_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)E", ln)
+            cur = m and f"gemm_sm90_kernel<{m[1]}, {m[2]}, {m[3]}>"
+            if cur:
+                counts[cur] = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG"), 0)
+        elif cur:
+            for op in counts[cur]:
+                counts[cur][op] += op in ln
+    if not counts or any(not n["HGMMA"] or not n["UTMALDG"]
+                         for n in counts.values()):
+        raise AssertionError(f"build: the Hopper GEMM's SASS {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1445,11 +1551,15 @@ def main() -> int:
     _cuda.lib()
     info = _cuda.build_info
     ptxas = [ln.strip() for ln in info.get("log", "").splitlines()
-             if "registers" in ln or "Compiling entry" in ln]
+             if "registers" in ln or "Compiling entry" in ln or "spill" in ln
+             or "C7512" in ln]
     status("build", f"{info['path']} in {time.perf_counter() - t0:.1f} s "
            f"(nvcc {info['seconds']:.1f} s)")
     for ln in ptxas:
         print("  " + ln)
+    for name, n in sass_counts(info["path"]).items():
+        status("build", f"{name}: " + ", ".join(f"{op} {c}"
+                                               for op, c in n.items()))
 
     from preworld_tpu_torch.data import tiny_nerf_config
     from preworld_tpu_torch.models import PreWorldConfig
@@ -1479,13 +1589,16 @@ def main() -> int:
                         ("fc1", "fc1 GEMM (LN2 prologue, bias, GELU)"),
                         ("fc2", "fc2 GEMM (bias, residual)")):
             ms, lib = st[f"{k}_ms"], st[f"{k}_cublas_ms"]
+            bnd = st[f"{k}_bound_ms"]
             status("kernel K1/K2 stages",
-                   f"Swin-B {st['stage']} {what}: kernel {ms:.3f} ms, "
-                   f"torch.matmul {lib:.3f} ms ({ms / lib:.2f}x)")
+                   f"Swin-B {st['stage']} {what}: gemm_sm90 {ms:.3f} ms, "
+                   f"bound {bnd:.3f} ms ({bnd / ms:.1%}), torch.matmul "
+                   f"{lib:.3f} ms ({ms / lib:.2f}x)")
         status("kernel K1/K2 stages",
                f"Swin-B {st['stage']} window attention: W-MSA "
                f"{st['attention_shift0_ms']:.3f} ms, SW-MSA "
-               f"{st['attention_shift6_ms']:.3f} ms")
+               f"{st['attention_shift6_ms']:.3f} ms; ln_stats LN1 "
+               f"{st['ln1_ms']:.3f} ms, LN2 {st['ln2_ms']:.3f} ms")
     rows["plane_sweep_cost_hom"] = phase(
         "kernel K3", lambda: check_cost_volume(gen, flag_cfg))
     rows["plane_sweep_cost"] = phase(
@@ -1500,7 +1613,8 @@ def main() -> int:
         for r in rows.get(name) or []:
             if r is None:
                 continue
-            ok = r["n_bad"] == 0 and r.get("bit_identical", True)
+            ok = (r["n_bad"] == 0 and r.get("bit_identical", True)
+                  and r.get("pad_decoy_n_bad", 1) > 0)
             if not ok:
                 failures.append(f"kernel {label} {r['shape']}")
             lib = (f", F.scaled_dot_product_attention {r['library_ms']:.3f} ms"
@@ -1509,6 +1623,9 @@ def main() -> int:
                 lib += f"; empty samples {r['empty_sample_share']:.4f}"
             same = (f"; bit-identical over two runs {r['bit_identical']}"
                     if "bit_identical" in r else "")
+            if "pad_decoy_n_bad" in r:
+                same += (f"; pad tokens left at ln_b would put "
+                         f"{r['pad_decoy_n_bad']} real outputs outside")
             times = (f"; kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} "
                      f"ms{lib}" if "ms" in r else "; untimed")
             status(f"kernel {label}",

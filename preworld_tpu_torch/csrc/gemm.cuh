@@ -1,42 +1,33 @@
-// Shared tiled bf16 GEMMs for the Swin half-block kernels (K1, K2) and
-// their backward chains (K1b, K2b).
+// Shared bf16 GEMMs of the Swin half-blocks' backward chains (K1b, K2b),
+// the LayerNorm statistics every K1 / K2 chain starts from, and small
+// helpers the Hopper kernels share. The forward products (K1's qkv and
+// proj, K2's fc1 and fc2, and the recomputes of K1b / K2b) run on the
+// TMA + wgmma pipeline of gemm_sm90.cuh.
 //
-// Forward layout NT (gemm_bf16, LAYOUT_NT):
-//   out[m, n] = epilogue( sum_k prologue(A)[m, k] * W[n, k] )
-// A is (M, K) row-major bf16; W is (N, K) row-major bf16 (the PyTorch
-// Linear layout), so B = W^T is read as a column-major (K, N) operand.
-// Backward layout NN (gemm_bf16, LAYOUT_NN): the same with W (K, N)
-// row-major, out = A . W -- the input gradient dX = dY . W of a Linear.
+// Input gradient (gemm_bf16, layout NN):
+//   out[m, n] = epilogue( sum_k A[m, k] * W[k, n] )
+// A (M, K) and W (K, N) row-major bf16 -- dX = dY . W of a Linear.
 // Tensor-core products through nvcuda::wmma 16x16x16 bf16 fragments with
 // f32 accumulation; one 128x128 output tile per 256-thread block, 4x2 warps
 // of 32x64, K in steps of 32 with the next step's tiles prefetched into
 // registers while the current step multiplies. The epilogue goes through a
 // 16x16 f32 scratch tile per warp, one accumulator fragment at a time.
-//
-// Prologue PRO_LN: LayerNorm over the K channels of each A row (two-pass
-// mean / variance in f32, eps), affine, optionally zeroing rows that are
-// pad tokens of the padded (B, Hp, Wp, C) Swin layout (row >= H or column
-// >= W), then rounding to bf16 -- the LN output never reaches device
-// memory.
-// Epilogues: +bias; +bias then exact-erf GELU; resid + row_scale * (acc +
-// bias) (the residual add of a half-block); +bias, GELU to `out` and the
-// f32 pre-activation to `out_f32` (K2b's recompute); plain bf16; plain f32
-// to `out_f32`; times GELU'(aux) with per-block f32 column sums into
-// `col_part` (K2b's dhpre and db1).
+// Epilogues: plain bf16; plain f32 to `out_f32`; times GELU'(aux) with
+// per-block f32 column sums into `col_part` (K2b's dhpre and db1).
 //
 // Weight gradient (gemm_dw, split over M):
 //   part[s, n, k] = sum_{m in chunk s} A[m, n] * prologue(B)[m, k]
 // over M chunks of `chunk` rows, grid (K/128, N/128, splits); the splits are
 // summed by reduce_parts in a fixed order, so two runs give identical bits
 // (no float atomics). PRO_LN on B applies the LayerNorm from per-row (mu,
-// rstd) statistics (ln_stats_kernel, bit-identical to the forward
-// prologue's; rstd = 0 marks a zeroed pad row).
+// rstd) statistics (ln_stats_kernel, the ones the forward's prologue reads;
+// rstd = 0 marks a zeroed pad row).
 //
 // Bound on H100: at the Swin-B widths these products are compute-bound
-// (K = 128..4096), but this synchronous-tile version reaches about a tenth
-// of the bf16 tensor-core peak: every warp loads its own wmma fragments
-// from shared memory and each K step waits at two barriers. wgmma / TMA
-// pipelines are later work.
+// (K = 128..4096), but the synchronous wmma tiles reach about a tenth of
+// the bf16 tensor-core peak: every warp loads its own wmma fragments from
+// shared memory and each K step waits at two barriers. Moving them onto
+// gemm_sm90.cuh's mainloop is later work.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -51,36 +42,19 @@ using bf16 = __nv_bfloat16;
 
 constexpr int GBM = 128, GBN = 128, GBK = 32, GTHREADS = 256;
 constexpr int GWARPS = GTHREADS / 32;
-constexpr int GLDS = GBK + 8;   // smem row stride of A / W tiles (bf16)
 constexpr int GLDN = GBN + 8;   // smem row stride of a (32, 128) tile (bf16)
+constexpr int GLDS = GBK + 8;   // smem row stride of a (128, 32) tile (bf16)
 constexpr int GLDE = 16 + 4;    // smem row stride of a warp's f32 epilogue tile
-// launch-grid rows the hardware takes (gridDim.y)
-constexpr int GRID_Y_MAX = 65535;
 
-enum Layout { LAYOUT_NT = 0, LAYOUT_NN = 1 };
 enum Prologue { PRO_NONE = 0, PRO_LN = 1 };
-enum Epilogue {
-  EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_RESID = 2, EPI_BIAS_GELU_SAVE = 3,
-  EPI_NONE = 4, EPI_F32 = 5, EPI_GELU_GRAD = 6
-};
+enum Epilogue { EPI_NONE = 0, EPI_F32 = 1, EPI_GELU_GRAD = 2 };
 
 struct GemmArgs {
   const bf16* A;        // (M, K)
-  const bf16* W;        // (N, K) for NT, (K, N) for NN
-  const float* bias;    // (N,) or null
+  const bf16* W;        // (K, N)
   bf16* out;            // (M, N)
   int M, N, K;
-  // PRO_LN
-  const float* ln_w;    // (K,)
-  const float* ln_b;    // (K,)
-  float eps;
-  int pad_mask;         // 1: zero the LN output of pad tokens
-  int Hp, Wp, Hv, Wv;   // padded and valid (real) extents
-  // EPI_RESID
-  const bf16* resid;    // (M, N)
-  const float* row_scale;  // indexed by m / rs_div, or null (= 1)
-  int rs_div;
-  // EPI_BIAS_GELU_SAVE / EPI_F32 / EPI_GELU_GRAD
+  // EPI_F32 / EPI_GELU_GRAD
   float* out_f32;       // (M, N)
   const float* aux;     // (M, N) f32: the GELU pre-activation
   float* col_part;      // (gridDim.y, N) f32 column sums per row tile
@@ -93,10 +67,6 @@ __device__ __forceinline__ bool pw_valid(int m, int Hp, int Wp, int Hv, int Wv) 
   return r < Hv && c < Wv;
 }
 
-__device__ __forceinline__ bool pw_token_valid(int m, const GemmArgs& a) {
-  return pw_valid(m, a.Hp, a.Wp, a.Hv, a.Wv);
-}
-
 __device__ __forceinline__ float pw_gelu(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
@@ -107,8 +77,24 @@ __device__ __forceinline__ float pw_gelu_grad(float z) {
          + z * 0.3989422804014327f * expf(-0.5f * z * z);
 }
 
-// Per-row LayerNorm statistics of a (M, K) bf16 matrix, one warp per row,
-// in the GEMM prologue's exact arithmetic.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Per-row LayerNorm statistics of a (M, K) bf16 matrix, one warp per row:
+// two-pass mean / variance in f32.
 __device__ __forceinline__ void pw_row_stats(const bf16* row, int K, int lane, float eps,
                                              float* mu_out, float* rstd_out) {
   float s = 0.f;
@@ -125,15 +111,13 @@ __device__ __forceinline__ void pw_row_stats(const bf16* row, int K, int lane, f
   *rstd_out = rsqrtf(v / (float)K + eps);
 }
 
-template <int LAYOUT, int PRO, int EPI>
+template <int EPI>
 __global__ void __launch_bounds__(GTHREADS)
 gemm_bf16_kernel(GemmArgs a) {
   using namespace nvcuda;
   __shared__ __align__(128) bf16 As[GBM][GLDS];
-  __shared__ __align__(128) bf16 Ws[GBN * GLDS];  // NT: [GBN][GLDS]; NN: [GBK][GLDN]
+  __shared__ __align__(128) bf16 Ws[GBK * GLDN];
   __shared__ __align__(128) float Es[GWARPS][16][GLDE];
-  __shared__ float s_mu[GBM];
-  __shared__ float s_rstd[GBM];
   __shared__ float s_col[4][GBN];
 
   const int tid = threadIdx.x;
@@ -141,23 +125,6 @@ gemm_bf16_kernel(GemmArgs a) {
   const int n0 = blockIdx.x * GBN;
   const int m0 = blockIdx.y * GBM;
   const int K = a.K;
-
-  if (PRO == PRO_LN) {
-    // per-row LayerNorm statistics: each warp owns GBM / GWARPS rows
-    for (int rr = warp; rr < GBM; rr += GWARPS) {
-      int m = m0 + rr;
-      float mu = 0.f, rstd = 0.f;
-      if (m < a.M) {
-        pw_row_stats(a.A + (size_t)m * K, K, lane, a.eps, &mu, &rstd);
-        if (a.pad_mask && !pw_token_valid(m, a)) rstd = 0.f;  // zero row
-      }
-      if (lane == 0) {
-        s_mu[rr] = mu;
-        s_rstd[rr] = rstd;
-      }
-    }
-    __syncthreads();
-  }
 
   // each thread moves 2 chunks of 8 bf16 for A and for W per K step
   uint4 ra[2], rw[2];
@@ -172,41 +139,19 @@ gemm_bf16_kernel(GemmArgs a) {
       } else {
         ra[i] = make_uint4(0, 0, 0, 0);
       }
-      if (LAYOUT == LAYOUT_NT) {
-        int n = n0 + r;
-        rw[i] = *reinterpret_cast<const uint4*>(a.W + (size_t)n * K + k0 + kc);
-      } else {  // (32 k rows) x (16 chunks of 8 n)
-        int kr = chunk >> 4, nc = (chunk & 15) * 8;
-        rw[i] = *reinterpret_cast<const uint4*>(a.W + (size_t)(k0 + kr) * a.N + n0 + nc);
-      }
+      // W: (32 k rows) x (16 chunks of 8 n)
+      int kr = chunk >> 4, nc = (chunk & 15) * 8;
+      rw[i] = *reinterpret_cast<const uint4*>(a.W + (size_t)(k0 + kr) * a.N + n0 + nc);
     }
   };
-  auto store_tiles = [&](int k0) {
+  auto store_tiles = [&]() {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       int chunk = tid + i * GTHREADS;
       int r = chunk >> 2, kc = (chunk & 3) * 8;
-      uint4 va = ra[i];
-      if (PRO == PRO_LN) {
-        const bf16* xv = reinterpret_cast<const bf16*>(&va);
-        float mu = s_mu[r], rstd = s_rstd[r];
-        bool zero = (rstd == 0.f);
-        __align__(16) bf16 y[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          int k = k0 + kc + j;
-          float t = (__bfloat162float(xv[j]) - mu) * rstd * a.ln_w[k] + a.ln_b[k];
-          y[j] = __float2bfloat16(zero ? 0.f : t);
-        }
-        va = *reinterpret_cast<const uint4*>(y);
-      }
-      *reinterpret_cast<uint4*>(&As[r][kc]) = va;
-      if (LAYOUT == LAYOUT_NT) {
-        *reinterpret_cast<uint4*>(&Ws[r * GLDS + kc]) = rw[i];
-      } else {
-        int kr = chunk >> 4, nc = (chunk & 15) * 8;
-        *reinterpret_cast<uint4*>(&Ws[kr * GLDN + nc]) = rw[i];
-      }
+      *reinterpret_cast<uint4*>(&As[r][kc]) = ra[i];
+      int kr = chunk >> 4, nc = (chunk & 15) * 8;
+      *reinterpret_cast<uint4*>(&Ws[kr * GLDN + nc]) = rw[i];
     }
   };
 
@@ -219,7 +164,7 @@ gemm_bf16_kernel(GemmArgs a) {
 
   load_tiles(0);
   for (int k0 = 0; k0 < K; k0 += GBK) {
-    store_tiles(k0);
+    store_tiles();
     __syncthreads();
     if (k0 + GBK < K) load_tiles(k0 + GBK);
 #pragma unroll
@@ -228,25 +173,14 @@ gemm_bf16_kernel(GemmArgs a) {
 #pragma unroll
       for (int i = 0; i < 2; ++i)
         wmma::load_matrix_sync(fa[i], &As[wm + i * 16][kk], GLDS);
-      if (LAYOUT == LAYOUT_NT) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb[4];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(fb[j], &Ws[(wn + j * 16) * GLDS + kk], GLDS);
+      for (int j = 0; j < 4; ++j)
+        wmma::load_matrix_sync(fb[j], &Ws[kk * GLDN + wn + j * 16], GLDN);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      } else {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::load_matrix_sync(fb[j], &Ws[kk * GLDN + wn + j * 16], GLDN);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
+        for (int j = 0; j < 4; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -266,21 +200,13 @@ gemm_bf16_kernel(GemmArgs a) {
       const int n = n0 + wn + j * 16 + ec;
       float v[8];
 #pragma unroll
-      for (int t = 0; t < 8; ++t) v[t] = E[er][ec + t] + (a.bias ? a.bias[n + t] : 0.f);
+      for (int t = 0; t < 8; ++t) v[t] = E[er][ec + t];
       if (m < a.M) {
-        float rs = 1.f;
-        if (EPI == EPI_RESID && a.row_scale) rs = a.row_scale[m / a.rs_div];
         __align__(16) bf16 o[8];
-        __align__(16) bf16 res[8];
-        if (EPI == EPI_RESID)
-          *reinterpret_cast<uint4*>(res) =
-              *reinterpret_cast<const uint4*>(a.resid + (size_t)m * a.N + n);
         const size_t off = (size_t)m * a.N + n;
 #pragma unroll
         for (int t = 0; t < 8; ++t) {
-          if (EPI == EPI_BIAS_GELU_SAVE || EPI == EPI_F32) a.out_f32[off + t] = v[t];
-          if (EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_GELU_SAVE) v[t] = pw_gelu(v[t]);
-          if (EPI == EPI_RESID) v[t] = __bfloat162float(res[t]) + rs * v[t];
+          if (EPI == EPI_F32) a.out_f32[off + t] = v[t];
           if (EPI == EPI_GELU_GRAD) v[t] *= pw_gelu_grad(a.aux[off + t]);
           o[t] = __float2bfloat16(v[t]);
         }
@@ -318,25 +244,21 @@ gemm_bf16_kernel(GemmArgs a) {
 }
 
 // Host-side launch; the caller checks cudaGetLastError().
-template <int PRO, int EPI, int LAYOUT = LAYOUT_NT>
+template <int EPI>
 inline void gemm_bf16(const GemmArgs& a, cudaStream_t stream) {
   dim3 grid(a.N / GBN, (a.M + GBM - 1) / GBM);
-  gemm_bf16_kernel<LAYOUT, PRO, EPI><<<grid, GTHREADS, 0, stream>>>(a);
+  gemm_bf16_kernel<EPI><<<grid, GTHREADS, 0, stream>>>(a);
 }
 
-inline GemmArgs gemm_args(const bf16* A, const bf16* W, const float* bias,
-                          bf16* out, int M, int N, int K) {
+inline GemmArgs gemm_args(const bf16* A, const bf16* W, bf16* out, int M, int N, int K) {
   GemmArgs a{};
-  a.A = A; a.W = W; a.bias = bias; a.out = out;
+  a.A = A; a.W = W; a.out = out;
   a.M = M; a.N = N; a.K = K;
-  a.eps = 1e-5f;
-  a.rs_div = 1;
   return a;
 }
 
-// ------------------------------------------------------------- backward
-
 // Per-row (mu, rstd) of x (M, K); rstd = 0 for pad tokens when pad_mask.
+// The first launch of every K1 / K2 chain and of their backward chains.
 static __global__ void ln_stats_kernel(const bf16* __restrict__ x, float* __restrict__ stats,
                                 int M, int K, float eps, int pad_mask,
                                 int Hp, int Wp, int Hv, int Wv) {
@@ -352,11 +274,13 @@ static __global__ void ln_stats_kernel(const bf16* __restrict__ x, float* __rest
   }
 }
 
-inline void ln_stats(const bf16* x, float* stats, int M, int K, int pad_mask, int Hp,
-                     int Wp, int Hv, int Wv, cudaStream_t stream) {
+// Returns the launch's error.
+inline cudaError_t ln_stats(const bf16* x, float* stats, int M, int K, int pad_mask, int Hp,
+                            int Wp, int Hv, int Wv, cudaStream_t stream) {
   const int blocks = (M + 7) / 8;  // 8 warps of 32 per block
   ln_stats_kernel<<<blocks, 256, 0, stream>>>(x, stats, M, K, 1e-5f, pad_mask, Hp, Wp, Hv,
                                               Wv);
+  return cudaGetLastError();
 }
 
 struct DwArgs {

@@ -108,10 +108,11 @@ __device__ __forceinline__ size_t token_row(const PackedMap&, const WinOrigin& o
   return o.base + t;
 }
 
-// K1's first two kernels (swin_block.cu): the LN1 + pad-zeroing + qkv
-// product into qkv (M, 3C), then window attention into o (M, C), both bf16
-// in image order. Returns the first launch error.
-cudaError_t attn_qkv_o(const bf16* x, const float* ln_w, const float* ln_b,
+// K1's qkv and attention kernels (swin_block.cu): the LN1 + pad-zeroing +
+// qkv product (gemm_sm90.cuh) from the per-row `stats` that ln_stats wrote,
+// into qkv (M, 3C), then window attention into o (M, C), both bf16 in image
+// order. Returns the first launch error.
+cudaError_t attn_qkv_o(const bf16* x, const float* stats, const float* ln_w, const float* ln_b,
                        const bf16* wqkv, const float* bqkv, const float* rel_bias,
                        const int* region, bf16* qkv, bf16* o, int B, int Hp, int Wp, int C,
                        int heads, int ws, int H, int W, int shift, float scale,
@@ -136,10 +137,6 @@ __device__ __forceinline__ uint32_t swz(int t, int c) {
   return (uint32_t)(t * 64 + ((c ^ ((t >> 1) & 3)) << 4));
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
 }
@@ -156,13 +153,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
 __device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -177,11 +167,6 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // A fragments (16 rows x 32 channels, two k16 steps) of rows [r0, r0 + 16)

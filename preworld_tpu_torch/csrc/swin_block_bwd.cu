@@ -10,25 +10,32 @@
 // so the backward is a chain of launches, each sum over tokens split into
 // fixed chunks and reduced in a fixed order (no float atomics: two runs
 // give identical bits):
-//   1. per-row LN1 statistics (rstd 0 marks a zeroed pad token);
-//   2. recompute qkv and the attention output o with K1's own kernels;
+//   1. per-row LN1 statistics (rstd 0 marks a zeroed pad token), as K1's
+//      forward computes them;
+//   2. recompute qkv and the attention output o with K1's own kernels
+//      (attn_qkv_o: the qkv product on the TMA + wgmma pipeline of
+//      gemm_sm90.cuh from the step-1 statistics, so qkv has the
+//      forward's bits, then the window-attention forward core);
 //   3. dyb = bf16(rs * dY); dbproj = column sums of rs * dY;
-//   4. dWproj = dyb^T o (split-M GEMM, gemm.cuh);
-//   5. dO = dyb . Wproj (NN GEMM) into o's buffer;
+//   4. dWproj = dyb^T o (split-M GEMM, gemm.cuh's wmma gemm_dw);
+//   5. dO = dyb . Wproj (NN GEMM on gemm.cuh's wmma tiles) into o's
+//      buffer;
 //   6. window-attention backward, the core of swin_attn_bwd.cuh on the
 //      forward's image-layout map with the roll and the region-id mask:
 //      dq, dk, dv to dqkv (M, 3C) in image order, and d rel-bias reduced
 //      over groups of windows in a fixed order;
-//   7. dbqkv = column sums of dqkv; dWqkv = dqkv^T LN1(x) (LN on the fly
-//      from the step-1 statistics);
-//   8. dyln = dqkv . Wqkv (NN GEMM, f32) into qkv's buffer;
+//   7. dbqkv = column sums of dqkv; dWqkv = dqkv^T LN1(x) (gemm_dw, LN on
+//      the fly from the step-1 statistics);
+//   8. dyln = dqkv . Wqkv (NN GEMM on the wmma tiles, f32) into qkv's
+//      buffer;
 //   9. LN1 backward with the pad-token mask, plus the residual:
 //      dx = dY + LN^T(dyln * ok), and d ln by per-block partials.
 // The shift stays in indexing, as in the forward: no rolled copy exists.
 //
-// Bound on H100: the four GEMMs (2 x 4 C^2 + 2 x 2 C^2 FLOP per token, the
-// qkv recompute included) are compute-bound on the same synchronous wmma
-// tiles as the forward; the attention backward (step 6) is the Hopper core
+// Bound on H100: the GEMMs (2 x 4 C^2 + 2 x 2 C^2 FLOP per token, the qkv
+// recompute included) are bound by operations at Swin-B's C >= 512; the
+// qkv recompute runs on wgmma, the other four on gemm.cuh's synchronous
+// wmma tiles, which bind. The attention backward (step 6) is the Hopper core
 // of swin_attn_bwd.cuh, bound by the bytes of qkv, dO and dqkv: mma.sync
 // products, one warp per 16-row strip, the next window's loads in flight,
 // the d-bias partial on chip for the block's windows.
@@ -81,10 +88,10 @@ extern "C" int pw_swin_attn_block_bwd(
 #define PW_CHECK()                                             \
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err
 
-  pw::ln_stats(xb, stats, M, C, 1, Hp, Wp, H, W, stream);
-  PW_CHECK();
-  err = pw::attn_qkv_o(xb, ln_w, ln_b, static_cast<const bf16*>(wqkv), bqkv, rel_bias, region,
-                       qkv, o, B, Hp, Wp, C, heads, ws, H, W, shift, scale, stream);
+  if ((err = pw::ln_stats(xb, stats, M, C, 1, Hp, Wp, H, W, stream)) != cudaSuccess)
+    return (int)err;
+  err = pw::attn_qkv_o(xb, stats, ln_w, ln_b, static_cast<const bf16*>(wqkv), bqkv, rel_bias,
+                       region, qkv, o, B, Hp, Wp, C, heads, ws, H, W, shift, scale, stream);
   if (err != cudaSuccess) return (int)err;
 
   // proj: dbproj, dWproj, then dO into o's buffer
@@ -95,8 +102,8 @@ extern "C" int pw_swin_attn_block_bwd(
   d.A = dyb; d.B = o; d.part = part; d.M = M; d.N = C; d.K = C;
   pw::gemm_dw<pw::PRO_NONE>(d, dwproj, stream);
   PW_CHECK();
-  pw::GemmArgs g = pw::gemm_args(dyb, static_cast<const bf16*>(wproj), nullptr, o, M, C, C);
-  pw::gemm_bf16<pw::PRO_NONE, pw::EPI_NONE, pw::LAYOUT_NN>(g, stream);
+  pw::GemmArgs g = pw::gemm_args(dyb, static_cast<const bf16*>(wproj), o, M, C, C);
+  pw::gemm_bf16<pw::EPI_NONE>(g, stream);
   PW_CHECK();
 
   // window attention backward -> dqkv, d rel-bias
@@ -114,10 +121,9 @@ extern "C" int pw_swin_attn_block_bwd(
   pw::gemm_dw<pw::PRO_LN>(q, dwqkv, stream);
   PW_CHECK();
   float* dyln = reinterpret_cast<float*>(qkv_buf);
-  pw::GemmArgs y = pw::gemm_args(dqkv, static_cast<const bf16*>(wqkv), nullptr, nullptr, M, C,
-                                 3 * C);
+  pw::GemmArgs y = pw::gemm_args(dqkv, static_cast<const bf16*>(wqkv), nullptr, M, C, 3 * C);
   y.out_f32 = dyln;
-  pw::gemm_bf16<pw::PRO_NONE, pw::EPI_F32, pw::LAYOUT_NN>(y, stream);
+  pw::gemm_bf16<pw::EPI_F32>(y, stream);
   PW_CHECK();
 
   // LN1 backward (pad tokens masked) + residual

@@ -6,25 +6,31 @@
 // a cotangent dY: dx (bf16) and, in f32, d ln (2, C), dW1 (4C, C), db1,
 // dW2 (C, 4C), db2. The TPU kernel recomputes per row block in VMEM and
 // carries the weight gradients across its ordered grid; here a chain of
-// launches on the shared GEMMs (gemm.cuh), every sum over rows split into
-// fixed chunks and reduced in a fixed order (identical bits run to run):
-//   1. per-row LN2 statistics;
+// launches on the shared GEMMs, every sum over rows split into fixed
+// chunks and reduced in a fixed order (identical bits run to run):
+//   1. per-row LN2 statistics (ln_stats, as K2's forward);
 //   2. recompute hpre = LN2(x) W1^T + b1 (f32, kept for GELU') and
-//      h = GELU(hpre) (bf16, as the forward rounds it);
+//      h = GELU(hpre) (bf16, as the forward rounds it): K2's fc1 on the
+//      TMA + wgmma pipeline of gemm_sm90.cuh (EPI_BIAS_GELU_SAVE), so h
+//      has the forward's bits;
 //   3. dyb = bf16(rs * dY); db2 = column sums of rs * dY;
-//   4. dW2 = dyb^T h (split-M GEMM);
-//   5. dhpre = (dyb . W2) o GELU'(hpre) (NN GEMM, GELU' epilogue), bf16
-//      into h's buffer, with db1 from the epilogue's f32 column sums;
-//   6. dW1 = dhpre^T LN2(x) (LN on the fly from the step-1 statistics);
-//   7. dn = dhpre . W1 (NN GEMM, f32) into hpre's buffer;
+//   4. dW2 = dyb^T h (split-M GEMM, gemm.cuh's wmma gemm_dw);
+//   5. dhpre = (dyb . W2) o GELU'(hpre) (NN GEMM on gemm.cuh's wmma tiles,
+//      GELU' epilogue), bf16 into h's buffer, with db1 from the
+//      epilogue's f32 column sums;
+//   6. dW1 = dhpre^T LN2(x) (gemm_dw, LN on the fly from the step-1
+//      statistics);
+//   7. dn = dhpre . W1 (NN GEMM on the wmma tiles, f32) into hpre's buffer;
 //   8. LN2 backward plus the residual: dx = dY + LN^T(dn) -- the residual
 //      takes the raw dY, the branch rs * dY (swin_mlp_pallas.py:170-172).
 //
 // Bound on H100: five products of 2 C 4C FLOP per row (the fc1 recompute
-// included) on the synchronous wmma tiles, compute-bound; the 4C hidden
-// goes through device memory three times (h / hpre written, read back),
-// where the TPU kernel kept it in VMEM.
-#include "gemm.cuh"
+// included), bound by operations at Swin-B's C >= 512 and near the line
+// below; the recompute runs on wgmma, the other four on the synchronous
+// wmma tiles of gemm.cuh (at about a tenth of the tensor-core peak), so
+// they bind. The 4C hidden goes through device memory three times (h /
+// hpre written, read back), where the TPU kernel kept it in VMEM.
+#include "gemm_sm90.cuh"
 
 using pw::bf16;
 
@@ -57,11 +63,13 @@ extern "C" int pw_swin_mlp_bwd(
 #define PW_CHECK()                                             \
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err
 
-  pw::ln_stats(xb, stats, M, C, 0, 1, 1, 1, 1, stream);
-  pw::GemmArgs f = pw::gemm_args(xb, static_cast<const bf16*>(w1), b1, h, M, Hd, C);
-  f.ln_w = ln_w; f.ln_b = ln_b; f.out_f32 = hpre_buf;
-  pw::gemm_bf16<pw::PRO_LN, pw::EPI_BIAS_GELU_SAVE>(f, stream);
-  PW_CHECK();
+  if ((err = pw::ln_stats(xb, stats, M, C, 0, 1, 1, 1, 1, stream)) != cudaSuccess)
+    return (int)err;
+  pw::Sm90Args f = pw::sm90_args(M, Hd, C, b1);
+  f.stats = stats; f.ln_w = ln_w; f.ln_b = ln_b; f.out_f32 = hpre_buf;
+  err = pw::gemm_sm90<pw::PRO_LN, pw::EPI_BIAS_GELU_SAVE>(xb, static_cast<const bf16*>(w1), h,
+                                                          nullptr, f, stream);
+  if (err != cudaSuccess) return (int)err;
 
   pw::scale_rows(dyv, row_scale, 1, dyb, M, C, stream);
   pw::colsum(dyv, row_scale, 1, part, db2, M, C, stream);
@@ -72,10 +80,10 @@ extern "C" int pw_swin_mlp_bwd(
   PW_CHECK();
 
   // dhpre over h's buffer (h is read by nothing after dW2)
-  pw::GemmArgs g = pw::gemm_args(dyb, static_cast<const bf16*>(w2), nullptr, h, M, Hd, C);
+  pw::GemmArgs g = pw::gemm_args(dyb, static_cast<const bf16*>(w2), h, M, Hd, C);
   g.aux = hpre_buf;
   g.col_part = part;
-  pw::gemm_bf16<pw::PRO_NONE, pw::EPI_GELU_GRAD, pw::LAYOUT_NN>(g, stream);
+  pw::gemm_bf16<pw::EPI_GELU_GRAD>(g, stream);
   PW_CHECK();
   pw::reduce_parts(part, db1, (M + pw::GBM - 1) / pw::GBM, Hd, stream);
   PW_CHECK();
@@ -87,9 +95,9 @@ extern "C" int pw_swin_mlp_bwd(
   PW_CHECK();
 
   // dn over hpre's buffer (M x C f32 fits in M x Hd f32)
-  pw::GemmArgs n = pw::gemm_args(h, static_cast<const bf16*>(w1), nullptr, nullptr, M, C, Hd);
+  pw::GemmArgs n = pw::gemm_args(h, static_cast<const bf16*>(w1), nullptr, M, C, Hd);
   n.out_f32 = hpre_buf;
-  pw::gemm_bf16<pw::PRO_NONE, pw::EPI_F32, pw::LAYOUT_NN>(n, stream);
+  pw::gemm_bf16<pw::EPI_F32>(n, stream);
   PW_CHECK();
 
   err = pw::ln_bwd(xb, stats, ln_w, hpre_buf, dyv, static_cast<bf16*>(dx), part, dln, M, C, 0,

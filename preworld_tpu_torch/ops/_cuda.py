@@ -44,8 +44,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "pw_swin_attn_block": [_P] * 13 + [_I] * 9 + [_F, _P],
-    "pw_swin_mlp": [_P] * 10 + [_I] * 3 + [_P],
+    "pw_swin_attn_block": [_P] * 14 + [_I] * 9 + [_F, _P],
+    "pw_swin_mlp": [_P] * 11 + [_I] * 3 + [_P],
     "pw_plane_sweep_cost_hom": [_P] * 4 + [_I] * 5 + [_F, _P],
     "pw_plane_sweep_cost_grid": [_P] * 4 + [_I] * 5 + [_F, _P],
     "pw_bev_pool_intervals": [_P] * 5 + [_I] * 2 + [_P],

@@ -12,10 +12,12 @@ tokens are zeroed after LN1, as in the reference "zero-pad after norm1"
 semantics. `fused_swin_attn_block` is differentiable (an autograd
 `Function` that saves only its inputs, as the JAX custom VJP does). On a
 CUDA tensor its forward launches the hand-written kernel chain in
-`csrc/swin_block.cu` (LN1+qkv product, window attention, proj product with
-residual epilogue) and its backward the chain in `csrc/swin_block_bwd.cu`
-(K1b); on a CPU tensor they run `fused_swin_attn_block_plain` and autograd
-through it (`fused_swin_attn_block_bwd_plain`). The region ids and
+`csrc/swin_block.cu` (LN1 row statistics, the LN1 + qkv product and the
+proj product with its residual epilogue on the TMA + wgmma GEMM of
+`csrc/gemm_sm90.cuh`, window attention between them) and its backward
+the chain in `csrc/swin_block_bwd.cu` (K1b); on a CPU tensor they run
+`fused_swin_attn_block_plain` and autograd through it
+(`fused_swin_attn_block_bwd_plain`). The region ids and
 `row_scale` (drop path) get no gradient; the rel-bias gradient flows back
 to the caller's bias table through its index gather.
 
@@ -130,14 +132,15 @@ def _forward_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, rel_bias,
     rb = _cuda.f32(rel_bias, "rel_bias", heads * N * N)
     rs = _cuda.f32(row_scale, "row_scale", B)
     reg = _region(region_ids, x, ws)
+    stats = torch.empty((M, 2), dtype=torch.float32, device=x.device)
     qkv_buf = torch.empty((M, 3 * C), dtype=bf, device=x.device)
     o_buf = torch.empty((M, C), dtype=bf, device=x.device)
     out = torch.empty_like(x)
     rc = _cuda.lib().pw_swin_attn_block(
         x.data_ptr(), lw.data_ptr(), lb.data_ptr(), wqkv.data_ptr(),
         bq.data_ptr(), wproj.data_ptr(), bp.data_ptr(), rb.data_ptr(),
-        _cuda.ptr(reg), _cuda.ptr(rs), qkv_buf.data_ptr(), o_buf.data_ptr(),
-        out.data_ptr(), B, Hp, Wp, C, heads, ws, H, W, shift,
+        _cuda.ptr(reg), _cuda.ptr(rs), stats.data_ptr(), qkv_buf.data_ptr(),
+        o_buf.data_ptr(), out.data_ptr(), B, Hp, Wp, C, heads, ws, H, W, shift,
         float(32) ** -0.5, _cuda.stream_ptr(x.device))
     _cuda.check(rc, "fused_swin_attn_block")
     _cuda.launches["fused_swin_attn_block"] += 1

@@ -3,9 +3,10 @@
 Counterpart of `preworld_tpu/ops/swin_mlp_pallas.py` (same module name;
 nothing here is Pallas). `fused_swin_mlp` is differentiable (an autograd
 `Function` saving only its inputs). On a CUDA tensor its forward launches
-the hand-written kernels in `csrc/swin_mlp.cu` and its backward the chain
-in `csrc/swin_mlp_bwd.cu` (K2b); on a CPU tensor they run
-`fused_swin_mlp_plain` and autograd through it
+the hand-written kernels in `csrc/swin_mlp.cu` (LN2 row statistics, then
+fc1 and fc2 on the TMA + wgmma GEMM of `csrc/gemm_sm90.cuh`) and its
+backward the chain in `csrc/swin_mlp_bwd.cu` (K2b); on a CPU tensor they
+run `fused_swin_mlp_plain` and autograd through it
 (`fused_swin_mlp_bwd_plain`). GELU is the exact erf form; `row_scale`
 (drop path) gets no gradient.
 """
@@ -70,12 +71,13 @@ def _forward_cuda(x, ln_w, ln_b, w1, b1, w2, b2, row_scale):
     c1 = _cuda.f32(b1, "b1", Hd)
     c2 = _cuda.f32(b2, "b2", C)
     rs = _cuda.f32(row_scale, "row_scale", M)
+    stats = torch.empty((M, 2), dtype=torch.float32, device=x.device)
     hidden = torch.empty((M, Hd), dtype=bf, device=x.device)
     out = torch.empty_like(x)
     rc = _cuda.lib().pw_swin_mlp(
         x.data_ptr(), lw.data_ptr(), lb.data_ptr(), w1.data_ptr(),
         c1.data_ptr(), w2.data_ptr(), c2.data_ptr(), _cuda.ptr(rs),
-        hidden.data_ptr(), out.data_ptr(), M, C, Hd,
+        stats.data_ptr(), hidden.data_ptr(), out.data_ptr(), M, C, Hd,
         _cuda.stream_ptr(x.device))
     _cuda.check(rc, "fused_swin_mlp")
     _cuda.launches["fused_swin_mlp"] += 1

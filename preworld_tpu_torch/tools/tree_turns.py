@@ -6,17 +6,22 @@ Each TREE is the root of a checkout of this repository (for example an
 unpacked `git archive` of another commit). Each runs in its own process
 from its root, in the order given (A B B A cancels drift between the
 first and the last runs), so each tree builds and runs its own code:
-  * kernels: the tree's `chip_smoke.check_swin` and
-    `chip_smoke.check_window_attn`, the Swin kernels at the flagship
-    shapes; per kernel (launch-counter key) the kernel ms summed over
-    those shapes and, where the check times one, the summed
+  * kernels: the tree's `chip_smoke.check_swin`,
+    `chip_smoke.check_swin_bwd` and `chip_smoke.check_window_attn`, the
+    Swin kernels (K1, K2, their backward chains K1b, K2b, and K5, K6) at
+    the flagship shapes; per kernel (launch-counter key) the kernel ms
+    summed over those shapes and, where the check times one, the summed
     `F.scaled_dot_product_attention` yardstick;
   * render: `nerf_head_losses` of 38400 rays on a 200x200x16 field (the
     per-stage bench's render, its density raised by 9 so that opacities
     are ~5e-3), forward and gradient in the three fields: the losses, the
     peak device bytes above the inputs, and the gradients' rel-L2 and
     cosine against the first tree's (through a file in a temporary
-    directory).
+    directory);
+  * end to end: the tree's `chip_smoke.run_flagship` (requests 2-3 of
+    the flagship predict, ms, and the profiled request's device-busy ms)
+    and `chip_smoke.run_train_flagship` (finetune steps 2-3, ms, and the
+    peak bytes), so that host time shows beside the kernels'.
 First line: the card's name and power limit; then one JSON line per turn.
 A card is required.
 """
@@ -43,6 +48,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 gen = torch.Generator(device="cuda").manual_seed(0)
 rows = dict(cs.check_swin(gen))
+rows.update(cs.check_swin_bwd(gen))
+torch.cuda.empty_cache()
 rows.update(cs.check_window_attn(gen))
 kernels = {}
 for name, rs in rows.items():
@@ -73,9 +80,19 @@ grads = torch.autograd.grad(sum(losses.values()), ins)
 torch.cuda.synchronize()
 peak = torch.cuda.max_memory_allocated() - base
 torch.save([g.cpu() for g in grads], sys.argv[1])
+losses_f = {k: float(v) for k, v in losses.items()}
+del ins, grads, losses
+torch.cuda.empty_cache()
+request = cs.run_flagship()
+torch.cuda.empty_cache()
+step = cs.run_train_flagship()
 print(json.dumps({"kernels": kernels, "render": {
-    "losses": {k: float(v) for k, v in losses.items()},
-    "peak_bytes_above_inputs": peak}}))
+    "losses": losses_f,
+    "peak_bytes_above_inputs": peak},
+    "flagship": {"request_ms": request["latency_ms"][1:],
+                 "busy_ms": request["profile"]["device_busy_ms"]},
+    "finetune": {"step_ms": step["step_ms"][1:],
+                 "peak_bytes": step["peak_bytes"]}}))
 """
 
 

@@ -44,17 +44,12 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-@pytest.mark.parametrize("shifted,drop", [(False, False), (True, False),
-                                          (True, True)])
-def test_attn_block_matches_pallas(shifted, drop):
-    """TestFusedSwinAttnBlock's shapes: B 2, H 7, W 10, C 128, 4 heads,
-    ws 4; pad content 37.0. The port takes x in image order and rolls in
-    its indexing; the Pallas kernel takes x pre-rolled."""
-    rng = np.random.default_rng(3)
-    B, H, W, C, heads, ws = 2, 7, 10, 128, 4, 4
+def _attn_block_case(rng, B, H, W, C, heads, ws, shift, rs):
+    """K1's port (plain twin on CPU tensors) against the Pallas kernel in
+    interpret mode, pad content 37.0. The port takes x in image order and
+    rolls in its indexing; the Pallas kernel takes x pre-rolled."""
     N = ws * ws
     Hp, Wp = H + (-H) % ws, W + (-W) % ws
-    shift = ws // 2 if shifted else 0
     x = np.full((B, Hp, Wp, C), 37.0, np.float32)
     x[:, :H, :W] = rng.normal(size=(B, H, W, C))
     ln_w = rng.normal(1.0, 0.1, C).astype(np.float32)
@@ -66,7 +61,6 @@ def test_attn_block_matches_pallas(shifted, drop):
     table = rng.normal(0.0, 0.5, ((2 * ws - 1) ** 2, heads)).astype(np.float32)
     bias = table[relative_position_index(ws).reshape(-1)].reshape(
         N, N, heads).transpose(2, 0, 1)
-    rs = (np.array([0.0, 1.25], np.float32) if drop else None)
 
     want = np.asarray(jax_attn_block(
         jnp.asarray(np.roll(x, (-shift, -shift), axis=(1, 2))),
@@ -88,21 +82,37 @@ def test_attn_block_matches_pallas(shifted, drop):
     np.testing.assert_allclose(got[:, :H, :W], want[:, :H, :W], **TOL)
 
 
-@pytest.mark.parametrize("drop", [False, True])
-def test_mlp_matches_pallas(drop):
-    rng = np.random.default_rng(5)
-    B, Hp, Wp, C = 2, 8, 12, 128
+@pytest.mark.parametrize("shifted,drop", [(False, False), (True, False),
+                                          (True, True)])
+def test_attn_block_matches_pallas(shifted, drop):
+    """TestFusedSwinAttnBlock's shapes: B 2, H 7, W 10, C 128, 4 heads,
+    ws 4; pad content 37.0."""
+    rs = np.array([0.0, 1.25], np.float32) if drop else None
+    _attn_block_case(np.random.default_rng(3), 2, 7, 10, 128, 4, 4,
+                     2 if shifted else 0, rs)
+
+
+@pytest.mark.parametrize("shift", [0, 2])
+def test_attn_block_c256_matches_pallas(shift):
+    """C 256 (8 heads): qkv N = 768 and proj N = 256, several output column
+    tiles of the card's GEMM; B 1, 3 x 7 real tokens padded to 4 x 8 (two
+    windows, 32 rows, short of one 128-row tile), ws 4."""
+    _attn_block_case(np.random.default_rng(6), 1, 3, 7, 256, 8, 4, shift,
+                     None)
+
+
+def _mlp_case(rng, shape, rs):
+    """K2's port (plain twin on CPU tensors) against the Pallas kernel in
+    interpret mode; x of `shape` (..., C), hidden 4C."""
+    C = shape[-1]
     Hd = 4 * C
-    x = rng.normal(size=(B, Hp, Wp, C)).astype(np.float32)
+    x = rng.normal(size=shape).astype(np.float32)
     ln_w = rng.normal(1.0, 0.1, C).astype(np.float32)
     ln_b = rng.normal(0.0, 0.1, C).astype(np.float32)
     w1 = (rng.normal(size=(C, Hd)) * C ** -0.5).astype(np.float32)
     b1 = rng.normal(0.0, 0.1, Hd).astype(np.float32)
     w2 = (rng.normal(size=(Hd, C)) * Hd ** -0.5).astype(np.float32)
     b2 = rng.normal(0.0, 0.1, C).astype(np.float32)
-    rs = None
-    if drop:
-        rs = np.repeat(np.array([0.0, 1.25], np.float32), Hp * Wp)
 
     want = np.asarray(jax_mlp(
         jnp.asarray(x), jnp.asarray(ln_w), jnp.asarray(ln_b), jnp.asarray(w1),
@@ -114,6 +124,21 @@ def test_mlp_matches_pallas(drop):
     got = fused_swin_mlp(*args).numpy()
     np.testing.assert_array_equal(got, fused_swin_mlp_plain(*args).numpy())
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("drop", [False, True])
+def test_mlp_matches_pallas(drop):
+    rs = np.repeat(np.array([0.0, 1.25], np.float32), 8 * 12) if drop else None
+    _mlp_case(np.random.default_rng(5), (2, 8, 12, 128), rs)
+
+
+@pytest.mark.parametrize("drop", [False, True])
+def test_mlp_c256_ragged_matches_pallas(drop):
+    """C 256, hidden 1024 (fc1 N = 1024, fc2 K = 1024), 35 rows: a ragged
+    row count, short of one 128-row tile and of the Pallas block of 64."""
+    rs = (np.random.default_rng(8).choice([0.0, 1.25], 35).astype(np.float32)
+          if drop else None)
+    _mlp_case(np.random.default_rng(7), (1, 5, 7, 256), rs)
 
 
 @pytest.mark.parametrize("window", [4, 7])
