@@ -45,7 +45,9 @@ fallback to the CPU or to a kernel's plain version:
              takes 3 train steps with remat off and 1 with it on: finite
              losses, a nonzero gradient on every parameter the key frame
              reaches, the EMA moved, 24 K1b and 24 K2b launches per step;
-             step time, peak memory and a profiler breakdown of one more step.
+             step time, peak memory, the TMA tensor maps encoded per step
+             (the flagship phase prints them per request) and a profiler
+             breakdown of one more step.
   kernel K5/K6  K5 (packed windows) at Swin-T stages 0-1 and K6 (image
              layout) at every Swin-B stage, W-MSA and SW-MSA, B = 6, against
              their plain versions, bit-identical over two runs; kernel,
@@ -61,6 +63,15 @@ fallback to the CPU or to a kernel's plain version:
              the backward's smaller warp counts) and 199 packed windows
              (a ragged last group of windows), each W-MSA and SW-MSA,
              under the same gates.
+  kernel K1b/K2b stages  the backward products' MN-major operands checked
+             alone against torch.matmul (`check_gemm_mn_major`: weight
+             gradients with and without the LN prologue, one split and
+             many, a ragged M; input gradients with W as stored) within
+             MN_MAJOR_REL_L2; then the K1b / K2b chains launch by launch at
+             every Swin-B stage (device ms from torch.profiler): each of
+             the eight products (dWproj, dO, dWqkv, dyln; dW2, dhpre, dW1,
+             dn) beside its bound (`bwd_work`) and one torch.matmul of the
+             same bf16 product, and the column sums beside theirs.
   swin-routes  Swin-B with `use_block_attn=False` (every stage per block on
              K6, K2 and their backward kernels) forward and backward on 6
              images at 512x1408, against the block route (K1, K2, K1b, K2b)
@@ -638,6 +649,201 @@ def check_swin_bwd(gen):
     return rows
 
 
+# the backward products' MN-major operands checked alone, weight gradient
+# A^T B and input gradient A W against torch.matmul in f32 (TF32 off) on
+# the same bf16 inputs: the sums differ only in order (rel-L2 ~1e-5 at M
+# 285,120), while a wrong layout of an operand gives rel-L2 ~1.4
+MN_MAJOR_REL_L2 = 1e-3
+
+
+def check_gemm_mn_major(gen) -> list:
+    """The Hopper GEMM's backward products alone (`pw_gemm_dw`,
+    `pw_gemm_dx`) against torch.matmul: weight gradients with both
+    operands MN-major (M ragged short of a 64-row box, one split and many;
+    with the LN prologue, every seventh row a pad row of rstd 0), input
+    gradients with W as stored (an MN-major B)."""
+    from preworld_tpu_torch.ops import _cuda
+
+    lib = _cuda.lib()
+    bf, f = torch.bfloat16, torch.float32
+    dev = torch.device("cuda")
+    stream = _cuda.stream_ptr(dev)
+    rows = []
+    for M, N, K, ln in ((35, 256, 1024, False), (300, 384, 128, True),
+                        (20736, 512, 2048, False), (285120, 128, 128, False),
+                        (77760, 1024, 256, True), (6912, 3072, 1024, True)):
+        a, b = randn(gen, (M, N), 1.0, bf), randn(gen, (M, K), 1.0, bf)
+        part = torch.empty((max(1, lib.pw_gemm_dw_part_elems(M, N, K, ln)),),
+                           dtype=f, device=dev)
+        got = torch.empty((N, K), dtype=f, device=dev)
+        ptrs = (None, None, None)
+        y = b
+        if ln:
+            xf = b.float()
+            mu = xf.mean(-1)
+            rstd = torch.rsqrt(((xf - mu[:, None]) ** 2).mean(-1) + 1e-5)
+            rstd[::7] = 0.0
+            stats = torch.stack([mu, rstd], -1).contiguous()
+            lw, lb = 1 + randn(gen, (K,), 0.1), randn(gen, (K,), 0.1)
+            y = ((xf - mu[:, None]) * rstd[:, None] * lw + lb).to(bf)
+            y[rstd == 0] = 0
+            ptrs = (stats.data_ptr(), lw.data_ptr(), lb.data_ptr())
+        _cuda.check(lib.pw_gemm_dw(a.data_ptr(), b.data_ptr(), got.data_ptr(),
+                                   part.data_ptr(), *ptrs, M, N, K, stream),
+                    "pw_gemm_dw")
+        want = torch.matmul(a.float().t(), y.float())
+        rows.append({"product": f"dW M{M} N{N} K{K}" + (" LN" if ln else ""),
+                     "splits": lib.pw_dw_splits(M, N, K, ln),
+                     "rel_l2": float((got - want).norm() / want.norm())})
+    for M, N, K in ((35, 256, 1024), (300, 128, 384), (20736, 512, 2048),
+                    (6912, 1024, 4096)):
+        a, w = randn(gen, (M, K), 1.0, bf), randn(gen, (K, N), 1.0, bf)
+        got = torch.empty((M, N), dtype=f, device=dev)
+        _cuda.check(lib.pw_gemm_dx(a.data_ptr(), w.data_ptr(), got.data_ptr(),
+                                   M, N, K, stream), "pw_gemm_dx")
+        want = torch.matmul(a.float(), w.float())
+        rows.append({"product": f"dX M{M} N{N} K{K}",
+                     "rel_l2": float((got - want).norm() / want.norm())})
+    torch.cuda.synchronize()
+    bad = [r for r in rows if not r["rel_l2"] <= MN_MAJOR_REL_L2]
+    if bad:
+        raise AssertionError(f"MN-major products off: {bad}")
+    return rows
+
+
+def bwd_work(k: str, M: int, C: int) -> dict:
+    """Bytes (operands and LN statistics once, f32 outputs at 4 bytes,
+    dhpre's f32 pre-activation read) and operations of one of the K1b /
+    K2b backward products at M rows and width C (hidden 4C)."""
+    H = 4 * C
+    b, f = {
+        "dwproj": (4 * M * C + 4 * C * C, 2 * M * C * C),
+        "do": (4 * M * C + 2 * C * C, 2 * M * C * C),
+        "dwqkv": (8 * M * C + 8 * M + 12 * C * C, 6 * M * C * C),
+        "dyln": (10 * M * C + 6 * C * C, 6 * M * C * C),
+        "dw2": (2 * M * C + 2 * M * H + 4 * C * H, 2 * M * C * H),
+        "dhpre": (2 * M * C + 2 * C * H + 6 * M * H + 4 * H, 2 * M * C * H),
+        "dw1": (2 * M * H + 2 * M * C + 8 * M + 4 * H * C, 2 * M * C * H),
+        "dn": (2 * M * H + 2 * H * C + 4 * M * C, 2 * M * C * H),
+    }[k]
+    return work(b, f)
+
+
+BWD_PRODUCTS = ("dwproj", "do", "dwqkv", "dyln", "dw2", "dhpre", "dw1", "dn")
+
+
+def check_swin_bwd_stages(gen):
+    """The K1b / K2b kernel chains launch by launch at every Swin-B stage (B
+    = 6; K1b at W-MSA and SW-MSA, the products and sums averaged over the
+    two): device ms of each of the eight backward products (a weight
+    gradient with its split reduction), beside its bound (`bwd_work`) and
+    one torch.matmul of the same bf16 product without prologue or
+    epilogue, a yardstick the port never calls; the column sums (dbproj
+    and db2 in the pass that writes bf16(rs dY), dbqkv, db1's reduction)
+    beside their bound; and the chains' other launches."""
+    from preworld_tpu_torch.models.swin import shifted_window_region_ids
+    from preworld_tpu_torch.ops import _cuda
+    from preworld_tpu_torch.ops import swin_block_pallas as k1
+    from preworld_tpu_torch.ops import swin_mlp_pallas as k2
+
+    lib = _cuda.lib()
+    bf = torch.bfloat16
+    ws, B = 12, 6
+    rs = torch.ones(B, device="cuda")
+    rs[0], rs[1] = 0.0, 1.0 / 0.9
+    out = []
+    for C, heads, Hp, Wp, H, W in SWIN_STAGES:
+        M, Hd = B * Hp * Wp, 4 * C
+        x = randn(gen, (B, Hp, Wp, C), 1.0, bf)
+        dy = randn(gen, (B, Hp, Wp, C), 1.0, bf)
+        ln_w, ln_b = 1 + randn(gen, (C,), 0.1), randn(gen, (C,), 0.1)
+        w = {"qkv": randn(gen, (3 * C, C), C ** -0.5, bf),
+             "proj": randn(gen, (C, C), C ** -0.5, bf),
+             "fc1": randn(gen, (Hd, C), C ** -0.5, bf),
+             "fc2": randn(gen, (C, Hd), Hd ** -0.5, bf)}
+        bias = {k: randn(gen, (v.shape[0],), 0.1) for k, v in w.items()}
+        rel_bias = window_bias(gen, ws, heads)
+        region = torch.from_numpy(shifted_window_region_ids(
+            Hp, Wp, ws, ws // 2).astype("int32")).cuda()
+
+        def dw(lab, n, k, ln):
+            red = [(f"{lab}_reduce", "reduce_splits_kernel")]
+            return [(lab, "gemm_dw_sm90_kernel")] + (
+                red if lib.pw_dw_splits(M, n, k, ln) > 1 else [])
+
+        k1_labels = ([("ln1", "ln_stats_kernel"), ("qkv", "gemm_sm90_kernel"),
+                      ("attention", "window_attn_kernel"),
+                      ("dy_colsum", "colsum_rows_kernel"),
+                      ("dbproj_reduce", "reduce_splits_kernel")]
+                     + dw("dwproj", C, C, False)
+                     + [("do", "gemm_sm90_kernel"),
+                        ("attention_bwd", "window_attn_bwd_kernel"),
+                        ("drel_reduce", "reduce_parts_kernel"),
+                        ("dqkv_colsum", "colsum_rows_kernel"),
+                        ("dbqkv_reduce", "reduce_splits_kernel")]
+                     + dw("dwqkv", 3 * C, C, True)
+                     + [("dyln", "gemm_sm90_kernel"),
+                        ("ln_bwd", "ln_bwd_kernel"),
+                        ("dln_reduce", "reduce_parts_kernel")])
+        k2_labels = ([("ln2", "ln_stats_kernel"), ("fc1", "gemm_sm90_kernel"),
+                      ("dy_colsum", "colsum_rows_kernel"),
+                      ("db2_reduce", "reduce_splits_kernel")]
+                     + dw("dw2", C, Hd, False)
+                     + [("dhpre", "gemm_sm90_kernel"),
+                        ("db1_reduce", "reduce_splits_kernel")]
+                     + dw("dw1", Hd, C, True)
+                     + [("dn", "gemm_sm90_kernel"), ("ln_bwd", "ln_bwd_kernel"),
+                        ("dln_reduce", "reduce_parts_kernel")])
+        k1_runs = []
+        for shift, reg in ((0, None), (ws // 2, region)):
+            args = (x, ln_w, ln_b, w["qkv"], bias["qkv"], w["proj"],
+                    bias["proj"], rel_bias, reg, rs, dy, heads, ws, H, W, shift)
+            k1_runs.append(chain_ms(
+                lambda: k1.fused_swin_attn_block_bwd(*args), k1_labels))
+        t1 = {k: statistics.mean(r[k] for r in k1_runs) for k in k1_runs[0]}
+        rs_rows = rs.repeat_interleave(Hp * Wp)
+        t2 = chain_ms(lambda: k2.fused_swin_mlp_bwd(
+            x, ln_w, ln_b, w["fc1"], bias["fc1"], w["fc2"], bias["fc2"],
+            rs_rows, dy), k2_labels)
+        t = {f"k1b_{k}": v for k, v in t1.items()}
+        t.update({f"k2b_{k}": v for k, v in t2.items()})
+        row = {"stage": f"C{C} h{heads} M{M}", "M": M, "C": C,
+               "k1b_sum_ms": sum(t1.values()), "k2b_sum_ms": sum(t2.values()),
+               "k1b_attention_ms": [r["attention"] for r in k1_runs],
+               "k1b_attention_bwd_ms": [r["attention_bwd"] for r in k1_runs],
+               "launches": t}
+        for k in BWD_PRODUCTS:
+            pre = "k1b_" if k in ("dwproj", "do", "dwqkv", "dyln") else "k2b_"
+            row[f"{k}_ms"] = t[pre + k] + t.get(f"{pre}{k}_reduce", 0.0)
+            row[f"{k}_bound_ms"] = bound([bwd_work(k, M, C)])[0]
+        row["colsum_ms"] = (t["k1b_dy_colsum"] + t["k1b_dbproj_reduce"]
+                            + t["k1b_dqkv_colsum"] + t["k1b_dbqkv_reduce"]
+                            + t["k2b_dy_colsum"] + t["k2b_db2_reduce"]
+                            + t["k2b_db1_reduce"])
+        # dY read twice and dqkv once (the sums), dyb written twice (the
+        # same passes write bf16(rs dY))
+        row["colsum_bound_ms"] = bound([work(2 * (2 * M * C) + 6 * M * C
+                                             + 2 * (2 * M * C), 0)])[0]
+        row["colsum_read_bound_ms"] = bound([work(4 * M * C + 6 * M * C, 0)])[0]
+        xm, dym = x.reshape(M, C), dy.reshape(M, C)
+        dqkv = randn(gen, (M, 3 * C), 1.0, bf)
+        hid = randn(gen, (M, Hd), 1.0, bf)
+        yard = {"dwproj": lambda: torch.matmul(dym.t(), xm),
+                "do": lambda: torch.matmul(dym, w["proj"]),
+                "dwqkv": lambda: torch.matmul(dqkv.t(), xm),
+                "dyln": lambda: torch.matmul(dqkv, w["qkv"]),
+                "dw2": lambda: torch.matmul(dym.t(), hid),
+                "dhpre": lambda: torch.matmul(dym, w["fc2"]),
+                "dw1": lambda: torch.matmul(hid.t(), xm),
+                "dn": lambda: torch.matmul(hid, w["fc1"])}
+        for k, fn in yard.items():
+            row[f"{k}_matmul_ms"] = cuda_ms(fn)
+        out.append(row)
+        del x, dy, dqkv, hid, xm, dym
+        torch.cuda.empty_cache()
+    return out
+
+
 def window_attn_cases(gen):
     """K5 / K6 inputs at their main-path shapes, B = 6: K5 on the packed
     windows of Swin-T stages 0-1, K6 on the image layout of every Swin-B
@@ -1071,15 +1277,17 @@ def run_flagship():
     sx, sy, sz = (int(v) for v in cfg.grid.size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    latencies, per_request = [], []
+    latencies, per_request, encodes = [], [], []
     _cuda.reset_launches()
     for b in batches:
         before = dict(_cuda.launches)
+        enc = _cuda.tensor_map_encodes()
         t0 = time.perf_counter()
         batch = to_device(b, "cuda")
         out = model.predict(batch)
         torch.cuda.synchronize()
         latencies.append((time.perf_counter() - t0) * 1e3)
+        encodes.append(_cuda.tensor_map_encodes() - enc)
         per_request.append({k: _cuda.launches[k] - before[k]
                             for k in _cuda.launches})
         occ = out["semantic_occ"]
@@ -1100,13 +1308,13 @@ def run_flagship():
                                  f"expected {EXPECTED_PER_REQUEST}")
     return {"latency_ms": latencies, "peak_bytes": peak,
             "launches": launches, "per_request": per_request[0],
-            "params": n_params,
+            "tensor_map_encodes": encodes, "params": n_params,
             "occ_classes": sorted(torch.unique(occ).tolist()),
             "profile": profile_call(
                 lambda: model.predict(to_device(batches[0], "cuda")))}
 
 
-def profile_call(fn, top: int = 25) -> dict:
+def profile_call(fn, top: int = 60) -> dict:
     """Device time by kernel over one call of fn (torch.profiler), and the
     share of the call's wall time the device was busy."""
     from torch.autograd import DeviceType
@@ -1254,11 +1462,13 @@ def run_train_flagship(
     def run(i):
         batch = to_device(batches[i], "cuda")
         _cuda.reset_launches()
+        enc = _cuda.tensor_map_encodes()
         t0 = time.perf_counter()
         _, metrics = step(state, batch, gen)
         metrics = {k: float(v) for k, v in metrics.items()}
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
+        encodes.append(_cuda.tensor_map_encodes() - enc)
         for k, v in metrics.items():
             if not math.isfinite(v):
                 raise AssertionError(f"{name} step {i}: {k} = {v}")
@@ -1267,6 +1477,7 @@ def run_train_flagship(
             raise AssertionError(f"{name} step {i}: no {sorted(missing)}")
         return metrics, ms, dict(_cuda.launches)
 
+    encodes = []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     steps = [run(i) for i in range(TRAIN_STEPS)]
@@ -1307,6 +1518,7 @@ def run_train_flagship(
         "remat": {"step_ms": remat_ms, "peak_bytes": remat_peak,
                   "metrics": remat_metrics, "launches": remat_launches},
         "ema_max_move": ema_move,
+        "tensor_map_encodes": encodes,
         "params": sum(p.numel() for p in model.parameters()),
         "profile": profile,
     }
@@ -1501,11 +1713,11 @@ def run_bench_parts():
 
 
 def sass_counts(lib_path: str) -> dict:
-    """Per instance of the Hopper GEMM (`gemm_sm90_kernel<prologue,
-    epilogue, tile width>`) in the built library, its wgmma (HGMMA), TMA
-    load (UTMALDG) and TMA store (UTMASTG) instructions, from `cuobjdump
-    -sass` (the toolkit's, beside nvcc); raises if an instance lacks
-    wgmma or TMA loads."""
+    """Per instance of the Hopper GEMMs (`gemm_sm90_kernel<prologue,
+    epilogue, tile width, W as stored>`, `gemm_dw_sm90_kernel<prologue>`)
+    in the built library, its wgmma (HGMMA), TMA load (UTMALDG) and TMA
+    store (UTMASTG) instructions, from `cuobjdump -sass` (the toolkit's,
+    beside nvcc); raises if an instance lacks wgmma or TMA loads."""
     import re
     from pathlib import Path
 
@@ -1517,8 +1729,12 @@ def sass_counts(lib_path: str) -> dict:
     counts, cur = {}, None
     for ln in sass.splitlines():
         if "Function :" in ln:
-            m = re.search(r"gemm_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)E", ln)
-            cur = m and f"gemm_sm90_kernel<{m[1]}, {m[2]}, {m[3]}>"
+            m = re.search(r"gemm_sm90_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb(\d)E",
+                          ln)
+            cur = m and f"gemm_sm90_kernel<{m[1]}, {m[2]}, {m[3]}, {m[4]}>"
+            if not cur:
+                m = re.search(r"gemm_dw_sm90_kernelILi(\d+)E", ln)
+                cur = m and f"gemm_dw_sm90_kernel<{m[1]}>"
             if cur:
                 counts[cur] = dict.fromkeys(("HGMMA", "UTMALDG", "UTMASTG"), 0)
         elif cur:
@@ -1677,6 +1893,35 @@ def main() -> int:
                    f"{grads} (limit {BWD_REL_L2}); max abs err "
                    f"{r['max_abs_err']:.3g}; bit-identical over two runs "
                    f"{r['bit_identical']}{times}")
+    torch.cuda.empty_cache()
+    mn = phase("kernel K1b/K2b stages", lambda: check_gemm_mn_major(gen))
+    for r in mn or []:
+        status("kernel K1b/K2b stages",
+               f"MN-major {r['product']}"
+               + (f" ({r['splits']} splits)" if "splits" in r else "")
+               + f" against torch.matmul: rel-L2 {r['rel_l2']:.2e} "
+               f"(limit {MN_MAJOR_REL_L2})")
+    bwd_stages = phase("kernel K1b/K2b stages",
+                       lambda: check_swin_bwd_stages(gen))
+    for st in bwd_stages or []:
+        for k in BWD_PRODUCTS:
+            ms, lib = st[f"{k}_ms"], st[f"{k}_matmul_ms"]
+            bnd = st[f"{k}_bound_ms"]
+            status("kernel K1b/K2b stages",
+                   f"Swin-B {st['stage']} {k}: {ms:.3f} ms, bound {bnd:.3f} "
+                   f"ms ({bnd / ms:.1%}), torch.matmul {lib:.3f} ms "
+                   f"({ms / lib:.2f}x)")
+        cs, cb = st["colsum_ms"], st["colsum_bound_ms"]
+        status("kernel K1b/K2b stages",
+               f"Swin-B {st['stage']} column sums (dbproj + db2 with the "
+               f"bf16(rs dY) they write, dbqkv, db1's reduction): {cs:.3f} "
+               f"ms, bound {cb:.3f} ms ({cb / cs:.1%}; reads alone "
+               f"{st['colsum_read_bound_ms']:.3f} ms)")
+        status("kernel K1b/K2b stages",
+               f"Swin-B {st['stage']} chains: K1b {st['k1b_sum_ms']:.3f} ms "
+               f"(W-MSA / SW-MSA mean), K2b {st['k2b_sum_ms']:.3f} ms; "
+               "launches " + json.dumps({k: round(v, 4) for k, v in
+                                         st["launches"].items()}))
     torch.cuda.empty_cache()
     swint = dict(routes=[("window", False)] * 2 + [("block", True)] * 2,
                  swin_embed_dims=SWINT["embed_dims"],

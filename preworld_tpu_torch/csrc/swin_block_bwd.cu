@@ -16,38 +16,46 @@
 //      (attn_qkv_o: the qkv product on the TMA + wgmma pipeline of
 //      gemm_sm90.cuh from the step-1 statistics, so qkv has the
 //      forward's bits, then the window-attention forward core);
-//   3. dyb = bf16(rs * dY); dbproj = column sums of rs * dY;
-//   4. dWproj = dyb^T o (split-M GEMM, gemm.cuh's wmma gemm_dw);
-//   5. dO = dyb . Wproj (NN GEMM on gemm.cuh's wmma tiles) into o's
-//      buffer;
+//   3. dyb = bf16(rs * dY) and dbproj = column sums of rs * dY, one pass
+//      over dY (colsum_rows);
+//   4. dWproj = dyb^T o (gemm_dw_sm90: split-M weight gradient, both
+//      operands MN-major);
+//   5. dO = dyb . Wproj (gemm_sm90 with Wproj as stored, an MN-major B)
+//      into o's buffer;
 //   6. window-attention backward, the core of swin_attn_bwd.cuh on the
 //      forward's image-layout map with the roll and the region-id mask:
 //      dq, dk, dv to dqkv (M, 3C) in image order, and d rel-bias reduced
 //      over groups of windows in a fixed order;
-//   7. dbqkv = column sums of dqkv; dWqkv = dqkv^T LN1(x) (gemm_dw, LN on
-//      the fly from the step-1 statistics);
-//   8. dyln = dqkv . Wqkv (NN GEMM on the wmma tiles, f32) into qkv's
+//   7. dbqkv = column sums of dqkv (colsum_rows); dWqkv = dqkv^T LN1(x)
+//      (gemm_dw_sm90, LN on the register operand from the step-1
+//      statistics);
+//   8. dyln = dqkv . Wqkv (gemm_sm90, MN-major B, f32 out) into qkv's
 //      buffer;
 //   9. LN1 backward with the pad-token mask, plus the residual:
 //      dx = dY + LN^T(dyln * ok), and d ln by per-block partials.
 // The shift stays in indexing, as in the forward: no rolled copy exists.
 //
-// Bound on H100: the GEMMs (2 x 4 C^2 + 2 x 2 C^2 FLOP per token, the qkv
-// recompute included) are bound by operations at Swin-B's C >= 512; the
-// qkv recompute runs on wgmma, the other four on gemm.cuh's synchronous
-// wmma tiles, which bind. The attention backward (step 6) is the Hopper core
-// of swin_attn_bwd.cuh, bound by the bytes of qkv, dO and dqkv: mma.sync
+// Bound on H100: the products (2 x 4 C^2 + 2 x 2 C^2 FLOP per token, the
+// qkv recompute included) against 2 C to 8 C bytes a row each: bound by
+// bytes at Swin-B's C = 128 / 256, by operations at C >= 512. All five run
+// on the TMA + wgmma pipeline of gemm_sm90.cuh (persistent grid, the
+// weight gradients split over M on it); the column sums read dY and dqkv
+// once each at 16 bytes a thread. The attention backward (step 6) is the
+// Hopper core of swin_attn_bwd.cuh, bound by the bytes of qkv, dO and dqkv: mma.sync
 // products, one warp per 16-row strip, the next window's loads in flight,
 // the d-bias partial on chip for the block's windows.
+#include "gemm_sm90.cuh"
 #include "swin_attn_bwd.cuh"
 
 namespace pw {
 
 inline long long block_bwd_part_elems(int B, int Hp, int Wp, int C, int heads, int ws) {
   const int M = B * Hp * Wp;
-  const long long cand[5] = {attn_bwd_part_elems(B * (Hp / ws) * (Wp / ws), heads, ws * ws),
-                             (long long)colsum_splits(M) * 3 * C, dw_part_elems(M, C, C),
-                             dw_part_elems(M, 3 * C, C), (long long)ln_bwd_splits(M) * 2 * C};
+  const long long cand[6] = {attn_bwd_part_elems(B * (Hp / ws) * (Wp / ws), heads, ws * ws),
+                             (long long)colsum_splits(M, C, sm_count()) * C,
+                             (long long)colsum_splits(M, 3 * C, sm_count()) * 3 * C,
+                             dw_part_elems(M, C, C, false), dw_part_elems(M, 3 * C, C, true),
+                             (long long)ln_bwd_splits(M) * 2 * C};
   long long n = 0;
   for (long long c : cand) n = c > n ? c : n;
   return n;
@@ -94,17 +102,18 @@ extern "C" int pw_swin_attn_block_bwd(
                        region, qkv, o, B, Hp, Wp, C, heads, ws, H, W, shift, scale, stream);
   if (err != cudaSuccess) return (int)err;
 
-  // proj: dbproj, dWproj, then dO into o's buffer
-  pw::scale_rows(dyv, row_scale, Hp * Wp, dyb, M, C, stream);
-  pw::colsum(dyv, row_scale, Hp * Wp, part, dbproj, M, C, stream);
+  // proj: dyb and dbproj in one pass over dY, dWproj, then dO into o's
+  // buffer
+  const int sms = pw::sm_count();
+  pw::colsum_rows(dyv, row_scale, Hp * Wp, dyb, part, dbproj, M, C, sms, stream);
   PW_CHECK();
   pw::DwArgs d{};
   d.A = dyb; d.B = o; d.part = part; d.M = M; d.N = C; d.K = C;
-  pw::gemm_dw<pw::PRO_NONE>(d, dwproj, stream);
-  PW_CHECK();
-  pw::GemmArgs g = pw::gemm_args(dyb, static_cast<const bf16*>(wproj), o, M, C, C);
-  pw::gemm_bf16<pw::EPI_NONE>(g, stream);
-  PW_CHECK();
+  if ((err = pw::gemm_dw_sm90<pw::PRO_NONE>(d, dwproj, stream)) != cudaSuccess) return (int)err;
+  const pw::Sm90Args g = pw::sm90_args(M, C, C, nullptr);
+  err = pw::gemm_sm90<pw::PRO_NONE, pw::EPI_BIAS, true>(dyb, static_cast<const bf16*>(wproj), o,
+                                                        nullptr, g, stream);
+  if (err != cudaSuccess) return (int)err;
 
   // window attention backward -> dqkv, d rel-bias
   err = pw::window_attn_bwd<pw::ImageMap, pw::MASK_REGION>(
@@ -113,18 +122,18 @@ extern "C" int pw_swin_attn_block_bwd(
   if (err != cudaSuccess) return (int)err;
 
   // qkv: dbqkv, dWqkv (LN1 on the fly), dyln = dqkv . Wqkv into qkv's buffer
-  pw::colsum(dqkv, nullptr, 1, part, dbqkv, M, 3 * C, stream);
+  pw::colsum_rows(dqkv, nullptr, 1, nullptr, part, dbqkv, M, 3 * C, sms, stream);
   PW_CHECK();
   pw::DwArgs q{};
   q.A = dqkv; q.B = xb; q.part = part; q.M = M; q.N = 3 * C; q.K = C;
   q.stats = stats; q.ln_w = ln_w; q.ln_b = ln_b;
-  pw::gemm_dw<pw::PRO_LN>(q, dwqkv, stream);
-  PW_CHECK();
+  if ((err = pw::gemm_dw_sm90<pw::PRO_LN>(q, dwqkv, stream)) != cudaSuccess) return (int)err;
   float* dyln = reinterpret_cast<float*>(qkv_buf);
-  pw::GemmArgs y = pw::gemm_args(dqkv, static_cast<const bf16*>(wqkv), nullptr, M, C, 3 * C);
+  pw::Sm90Args y = pw::sm90_args(M, C, 3 * C, nullptr);
   y.out_f32 = dyln;
-  pw::gemm_bf16<pw::EPI_F32>(y, stream);
-  PW_CHECK();
+  err = pw::gemm_sm90<pw::PRO_NONE, pw::EPI_F32, true>(dqkv, static_cast<const bf16*>(wqkv),
+                                                       nullptr, nullptr, y, stream);
+  if (err != cudaSuccess) return (int)err;
 
   // LN1 backward (pad tokens masked) + residual
   err = pw::ln_bwd(xb, stats, ln_w, dyln, dyv, static_cast<bf16*>(dx), part, dln, M, C, 1, Hp,

@@ -58,10 +58,17 @@ _SIGNATURES = {
     "pw_window_attn_bwd_part_elems": [_I] * 3,
     "pw_window_attn_packed_bwd": [_P] * 7 + [_I] * 5 + [_F, _P],
     "pw_window_attn_band_bwd": [_P] * 7 + [_I] * 6 + [_F, _P],
+    "pw_tensor_map_encodes": [],
+    "pw_dw_splits": [_I] * 4,
+    "pw_gemm_dw_part_elems": [_I] * 4,
+    "pw_gemm_dw": [_P] * 7 + [_I] * 3 + [_P],
+    "pw_gemm_dx": [_P] * 3 + [_I] * 3 + [_P],
 }
 _RESTYPES = {"pw_swin_attn_block_bwd_part_elems": ctypes.c_longlong,
              "pw_swin_mlp_bwd_part_elems": ctypes.c_longlong,
-             "pw_window_attn_bwd_part_elems": ctypes.c_longlong}
+             "pw_window_attn_bwd_part_elems": ctypes.c_longlong,
+             "pw_tensor_map_encodes": ctypes.c_longlong,
+             "pw_gemm_dw_part_elems": ctypes.c_longlong}
 
 _lib = None
 build_info: dict = {}
@@ -147,6 +154,12 @@ def lib() -> ctypes.CDLL:
             fn.restype = _RESTYPES.get(name, ctypes.c_int)
         _lib = handle
     return _lib
+
+
+def tensor_map_encodes() -> int:
+    """TMA tensor maps the Hopper GEMM has encoded since the library loaded
+    (its cache's misses)."""
+    return int(lib().pw_tensor_map_encodes())
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -12,6 +12,9 @@ first and the last runs), so each tree builds and runs its own code:
     the flagship shapes; per kernel (launch-counter key) the kernel ms
     summed over those shapes and, where the check times one, the summed
     `F.scaled_dot_product_attention` yardstick;
+  * forward bits: K1 (W-MSA and SW-MSA) and K2 at every Swin-B stage on
+    inputs drawn from a fixed seed, each output's SHA-256, so that turns
+    show whether two trees' forward kernels give the same bits;
   * render: `nerf_head_losses` of 38400 rays on a 200x200x16 field (the
     per-stage bench's render, its density raised by 9 so that opacities
     are ~5e-3), forward and gradient in the three fields: the losses, the
@@ -20,8 +23,10 @@ first and the last runs), so each tree builds and runs its own code:
     directory);
   * end to end: the tree's `chip_smoke.run_flagship` (requests 2-3 of
     the flagship predict, ms, and the profiled request's device-busy ms)
-    and `chip_smoke.run_train_flagship` (finetune steps 2-3, ms, and the
-    peak bytes), so that host time shows beside the kernels'.
+    and `chip_smoke.run_train_flagship` for the finetune and the pretrain
+    config (steps 2-3, ms, the peak bytes, the profiled step's device-busy
+    ms and its lines of column sums and split reductions), so that host
+    time shows beside the kernels'.
 First line: the card's name and power limit; then one JSON line per turn.
 A card is required.
 """
@@ -37,7 +42,7 @@ import tempfile
 import torch
 
 _RUN = r"""
-import json, sys
+import hashlib, json, sys
 sys.path.insert(0, ".")
 import numpy as np
 import torch
@@ -57,6 +62,31 @@ for name, rs in rows.items():
     kernels[name] = {"ms": sum(r["ms"] for r in rs)}
     if all("library_ms" in r for r in rs):
         kernels[name]["library_ms"] = sum(r["library_ms"] for r in rs)
+
+from preworld_tpu_torch.models.swin import shifted_window_region_ids
+from preworld_tpu_torch.ops import swin_block_pallas as k1
+from preworld_tpu_torch.ops import swin_mlp_pallas as k2
+
+fwd_bits, bf = {}, torch.bfloat16
+g = torch.Generator(device="cuda").manual_seed(11)
+for C, heads, Hp, Wp, H, W in cs.SWIN_STAGES:
+    x = cs.randn(g, (6, Hp, Wp, C), 1.0, bf)
+    lw, lb = 1 + cs.randn(g, (C,), 0.1), cs.randn(g, (C,), 0.1)
+    w = [cs.randn(g, s, s[1] ** -0.5, bf) for s in
+         ((3 * C, C), (C, C), (4 * C, C), (C, 4 * C))]
+    b = [cs.randn(g, (s[0],), 0.1) for s in ((3 * C,), (C,), (4 * C,), (C,))]
+    rb = cs.window_bias(g, 12, heads)
+    reg = torch.from_numpy(shifted_window_region_ids(Hp, Wp, 12, 6).astype(
+        "int32")).cuda()
+    outs = {f"K1 C{C} shift{sh}": k1.fused_swin_attn_block(
+        x, lw, lb, w[0], b[0], w[1], b[1], rb, r, None, heads, 12, H, W, sh)
+        for sh, r in ((0, None), (6, reg))}
+    outs[f"K2 C{C}"] = k2.fused_swin_mlp(x, lw, lb, w[2], b[2], w[3], b[3])
+    for k, o in outs.items():
+        fwd_bits[k] = hashlib.sha256(o.view(torch.int16).cpu().numpy()
+                                     .tobytes()).hexdigest()[:16]
+    del x, outs
+torch.cuda.empty_cache()
 
 rng = np.random.default_rng(0)
 R, X, Y, Z = 38400, 200, 200, 16
@@ -86,13 +116,30 @@ torch.cuda.empty_cache()
 request = cs.run_flagship()
 torch.cuda.empty_cache()
 step = cs.run_train_flagship()
-print(json.dumps({"kernels": kernels, "render": {
+torch.cuda.empty_cache()
+pre = cs.run_train_flagship("configs/preworld/preworld_7frame_pretrain.py",
+                            cs.PRETRAIN_ZERO_GRAD_PREFIXES, 38400,
+                            cs.PRETRAIN_LOSSES, "pretrain-flagship")
+
+
+def sums(run):
+    return {k["name"][:60]: [k["ms"], k["count"]]
+            for k in run["profile"]["top_kernels"]
+            if any(w in k["name"] for w in ("colsum", "scale_rows", "reduce_"))}
+
+
+print(json.dumps({"kernels": kernels, "forward_sha256": fwd_bits, "render": {
     "losses": losses_f,
     "peak_bytes_above_inputs": peak},
     "flagship": {"request_ms": request["latency_ms"][1:],
                  "busy_ms": request["profile"]["device_busy_ms"]},
     "finetune": {"step_ms": step["step_ms"][1:],
-                 "peak_bytes": step["peak_bytes"]}}))
+                 "peak_bytes": step["peak_bytes"],
+                 "busy_ms": step["profile"]["device_busy_ms"],
+                 "sums": sums(step)},
+    "pretrain": {"step_ms": pre["step_ms"][1:],
+                 "busy_ms": pre["profile"]["device_busy_ms"],
+                 "sums": sums(pre)}}))
 """
 
 
@@ -109,7 +156,7 @@ def main(argv=None) -> int:
                          text=True, check=True)
     print(smi.stdout.strip().splitlines()[0], flush=True)
     with tempfile.TemporaryDirectory() as tmp:
-        first = None
+        first = first_bits = None
         for i, tree in enumerate(trees):
             path = os.path.join(tmp, f"grads{i}.pt")
             proc = subprocess.run([sys.executable, "-c", _RUN, path],
@@ -119,6 +166,9 @@ def main(argv=None) -> int:
                       file=sys.stderr)
                 return 1
             res = json.loads(proc.stdout.strip().splitlines()[-1])
+            bits = res.pop("forward_sha256")
+            first_bits = first_bits or bits
+            res["forward_bits_as_first"] = bits == first_bits
             grads = torch.load(path)
             first = first or grads
             res["render"]["grads_vs_first"] = [

@@ -41,14 +41,25 @@ def _t(a, grad=False):
     return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(grad)
 
 
-@pytest.mark.parametrize("shifted,drop", [(False, False), (True, False),
-                                          (True, True)])
-def test_attn_block_grads_match_jax_vjp(shifted, drop):
+@pytest.mark.parametrize("shifted,drop,C", [
+    pytest.param(False, False, 128, id="False-False"),
+    pytest.param(True, False, 128, id="True-False"),
+    pytest.param(True, True, 128, id="True-True"),
+    pytest.param(False, False, 256, id="c256-shift0"),
+    pytest.param(True, False, 256, id="c256-shift2")])
+def test_attn_block_grads_match_jax_vjp(shifted, drop, C):
     """B 2, H 7, W 10 (padded 8 x 12), C 128, 4 heads, ws 4. The JAX
     kernel takes x and the cotangent pre-rolled by -shift; the port works
-    in image order. Every input gradient, the bias one as (heads, N, N)."""
-    rng = np.random.default_rng(3)
-    B, H, W, C, heads, ws = 2, 7, 10, 128, 4, 4
+    in image order. Every input gradient, the bias one as (heads, N, N).
+    C 256 (8 heads; B 1, 3 x 7 real tokens padded to 4 x 8, 32 rows): the
+    card's backward products then tile the weight gradients 128 x 256 and
+    take a row count short of one 64-row box."""
+    if C == 128:
+        rng = np.random.default_rng(3)
+        B, H, W, heads, ws = 2, 7, 10, 4, 4
+    else:
+        rng = np.random.default_rng(6)
+        B, H, W, heads, ws = 1, 3, 7, 8, 4
     N = ws * ws
     Hp, Wp = H + (-H) % ws, W + (-W) % ws
     shift = ws // 2 if shifted else 0
@@ -110,12 +121,19 @@ def test_rel_bias_grad_reaches_table():
                                want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("M,drop", [(256, False), (300, False), (300, True)])
-def test_mlp_grads_match_jax_vjp(M, drop):
+@pytest.mark.parametrize("M,drop,C", [
+    pytest.param(256, False, 128, id="256-False"),
+    pytest.param(300, False, 128, id="300-False"),
+    pytest.param(300, True, 128, id="300-True"),
+    pytest.param(35, True, 256, id="c256-35"),
+    pytest.param(300, True, 256, id="c256-300")])
+def test_mlp_grads_match_jax_vjp(M, drop, C):
     """C 128, hidden 512 (TestFusedSwinMlp._grad_case): every input
-    gradient against the Pallas backward in interpret mode."""
-    rng = np.random.default_rng(2 if drop else 1)
-    C, Hd = 128, 512
+    gradient against the Pallas backward in interpret mode. C 256, hidden
+    1024, at 35 and 300 rows: ragged, short of one 128-row tile and one
+    64-row box, and 300 over the card's split and tile edges."""
+    rng = np.random.default_rng((2 if drop else 1) + (C // 256) * 10)
+    Hd = 4 * C
     x = rng.normal(size=(M, C)).astype(np.float32)
     ls = rng.normal(size=C).astype(np.float32)
     lb = rng.normal(size=C).astype(np.float32)
