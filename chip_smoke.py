@@ -10,14 +10,20 @@ fallback to the CPU or to a kernel's plain version:
   build      nvcc builds the hand-written kernels (preworld_tpu_torch/csrc/)
              for sm_90a into preworld_tpu_torch/build/.
   kernel K*  each kernel against its plain PyTorch version on the card, at
-             the flagship shapes (K3 also at 256 channels; K7 at the
-             shapes of the per-stage bench's cost volume, and at 256
+             the flagship shapes (K3 also at 256 channels and on a harsh
+             rig, 3 degrees of yaw and 2 m a frame, at 128 and 256; K7 at
+             the shapes of the per-stage bench's cost volume, and at 256
              channels; K1 / K2 also, untimed, at Swin-T's block-route
-             stages), within the stated tolerance; both timed. K1 / K2
-             bit-identical over two runs, and K1's pad check: a case with
-             ln_b at scale 1 that a prologue leaving pad tokens at ln_b
-             instead of 0 would fail (the plain version fed that decoy
-             must fall outside the tolerance).
+             stages), within the stated tolerance; both timed. K1 / K2,
+             K3, K4 and K7 bit-identical over two runs; K1's pad check: a
+             case with ln_b at scale 1 that a prologue leaving pad tokens
+             at ln_b instead of 0 would fail (the plain version fed that
+             decoy must fall outside the tolerance). K3 prints each rig's
+             sample footprint (samples in range, corners kept from one
+             plane to the next, the corner box of a 64-pixel row tile and
+             plane); K4 its kernels alone (profiler) beside the whole
+             wrapper (sort included), the longest interval, and its
+             interval starts against searchsorted.
   kernel K1/K2 stages  the K1 / K2 chains launch by launch at every Swin-B
              stage (ln_stats, qkv, attention, proj; ln_stats, fc1, fc2;
              device ms from torch.profiler), each GEMM beside its bound
@@ -115,6 +121,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -268,6 +275,9 @@ PRETRAIN_LOSSES = ("loss_render_depth", "loss_render_semantic",
                    "loss_sdf_distortion", "loss_lss_depth")
 # the per-stage bench's cost volume (tools/bench_parts.py), K7's shapes
 BENCH_CV = dict(BN=6, H=128, W=352, C=128, D=88)
+# K3's harsh rig: the ego turns this many degrees of yaw and moves this many
+# metres along x per temporal frame (the flagship rig: 0 and -0.4)
+HARSH_YAW_DEG, HARSH_STEP_M = 3.0, -2.0
 # pretrain-reference: the density head's output bias, so that the render
 # works at opacities of order 5e-3 (alpha = 1 - exp(-softplus(density +
 # shift) / 2) with shift -13.8). At the initial opacity of 1e-6 that
@@ -1048,8 +1058,10 @@ def check_window_attn_bwd(gen):
     return rows
 
 
-def flagship_geometry(cfg, device):
-    """Camera tensors of the flagship synthetic rig for temporal frame 0."""
+def flagship_geometry(cfg, device, harsh=False):
+    """Camera tensors of the flagship synthetic rig for temporal frame 0;
+    `harsh`: frame t's ego pose turned by HARSH_YAW_DEG t degrees of yaw and
+    moved HARSH_STEP_M t metres along x (the flagship rig: 0 and -0.4)."""
     from preworld_tpu_torch.data import synthetic_batch, to_device
     from preworld_tpu_torch.geometry import (
         curr2adjsensor_chain,
@@ -1058,6 +1070,12 @@ def flagship_geometry(cfg, device):
 
     b = synthetic_batch(cfg, 1, seed=0)
     b.pop("imgs")
+    if harsh:
+        for t in range(b["ego2globals"].shape[1]):
+            a = math.radians(HARSH_YAW_DEG * t)
+            b["ego2globals"][:, t, :, :2, :2] = [[math.cos(a), -math.sin(a)],
+                                                [math.sin(a), math.cos(a)]]
+            b["ego2globals"][:, t, :, 0, 3] = HARSH_STEP_M * t
     b = to_device(b, device)
     return b, sensor2keyego_chain(b["sensor2egos"], b["ego2globals"]), \
         curr2adjsensor_chain(b["sensor2egos"], b["ego2globals"],
@@ -1072,47 +1090,101 @@ def empty_share(cost, curr, bias: float) -> float:
                  .float().mean())
 
 
-def check_cost_volume(gen, cfg):
-    """K3 at the flagship's 128 stereo channels, and at 256 (a width the
-    route also sends to K3; marked `extra`: checked, left out of the
-    per-kernel sums)."""
+def k3_homographies(cfg, harsh=False):
+    """K3's (BN, D, 3, 3) homographies of the flagship (or harsh) rig at
+    the cost volume's stride 4, on the card."""
     from preworld_tpu_torch.geometry import create_frustum
     from preworld_tpu_torch.models.depthnet import gen_stereo_homography
-    from preworld_tpu_torch.ops import cost_volume_pallas as k3
 
-    b, _, curr2adj = flagship_geometry(cfg, "cuda")
+    b, _, curr2adj = flagship_geometry(cfg, "cuda", harsh)
     fr = torch.from_numpy(create_frustum(cfg.grid, cfg.input_size, 4)).cuda()
-    hom = gen_stereo_homography(
+    return gen_stereo_homography(
         fr, curr2adj[:, 0], b["intrins"][:, 0], b["post_rots"][:, 0],
         b["post_trans"][:, 0], cfg.input_size).contiguous()
+
+
+def k3_footprint(hom, H: int, W: int, tile: int = 64,
+                 budget: int = 256) -> dict:
+    """Where K3's samples fall, from the homographies as the kernel computes
+    the positions: the share of (pixel, plane) samples in range; the share
+    whose next plane keeps the same four corners (floor(gx), floor(gy) and
+    the in-range state); and per (row tile of `tile` pixels, plane) the box
+    of corner pixels its in-range samples read (rows, columns: median, p90,
+    p99, max) and the share of boxes over `budget` pixels."""
+    from preworld_tpu_torch.ops.cost_volume_pallas import sample_positions
+
+    gx, gy, ok = sample_positions(hom, H, W)
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    same = (x0[:, 1:] == x0[:, :-1]) & (y0[:, 1:] == y0[:, :-1]) \
+        & ok[:, 1:] & ok[:, :-1] | ~ok[:, 1:] & ~ok[:, :-1]
+    pad = -W % tile
+    big = torch.tensor(float("inf"), device=hom.device)
+
+    def tiles(t, fill):
+        t = torch.where(ok, t, fill)
+        t = torch.nn.functional.pad(t, (0, pad), value=float(fill))
+        return t.reshape(*t.shape[:-1], -1, tile)
+
+    any_in = tiles(ok.float(), 0.0).amax(-1) > 0
+    dims = {}
+    for name, v in (("rows", y0), ("columns", x0)):
+        span = tiles(v, -big).amax(-1) - tiles(v, big).amin(-1) + 2
+        dims[name] = span[any_in]
+    box = dims["rows"] * dims["columns"]
+    q = torch.tensor([0.5, 0.9, 0.99], device=hom.device)
+    return {"in_range": float(ok.float().mean()),
+            "corners_kept": float(same.float().mean()),
+            **{f"box_{k}": [float(x) for x in torch.quantile(v, q)]
+               + [float(v.max())] for k, v in dims.items()},
+            "boxes_over_budget": float((box > budget).float().mean()),
+            "tile": tile, "budget_pixels": budget}
+
+
+def check_cost_volume(gen, cfg):
+    """K3 at the flagship's 128 stereo channels on the flagship rig; marked
+    `extra` (checked and timed, left out of the per-kernel sums): 256
+    channels (a width the route also sends to K3) and the harsh rig (HARSH_*)
+    at 128 and 256. Each against the plain version, and bit-identical over
+    two runs; each rig's sample footprint (`k3_footprint`)."""
+    from preworld_tpu_torch.ops import cost_volume_pallas as k3
+
     BN = cfg.num_cams
     Hc, Wc = cfg.input_size[0] // 4, cfg.input_size[1] // 4
-    D = hom.shape[1]
     rows = []
-    for C in (128, 256):
-        prev = randn(gen, (BN, Hc, Wc, C), 1.0, torch.bfloat16)
-        curr = randn(gen, (BN, Hc, Wc, C), 1.0, torch.bfloat16)
-        args = (prev, curr, hom, 5.0)
-        got = k3.plane_sweep_cost_hom(*args)
-        r = compare("plane_sweep_cost_hom", got,
-                    k3.plane_sweep_cost_hom_plain(*args))
-        r["ms"] = cuda_ms(lambda: k3.plane_sweep_cost_hom(*args))
-        r["plain_ms"] = cuda_ms(lambda: k3.plane_sweep_cost_hom_plain(*args))
-        r["shape"] = f"BN{BN} D{D} {Hc}x{Wc}x{C}"
-        # per output: a bilinear sample (4 FMA per channel), |curr - s|
-        # summed
-        r.update(work(2 * BN * Hc * Wc * C * 2 + hom.numel() * 4
-                      + BN * D * Hc * Wc * 4, 11 * BN * D * Hc * Wc * C,
-                      F32_FLOPS), extra=C != 128)
-        r["empty_sample_share"] = empty_share(got, curr, 5.0)
-        rows.append(r)
-        del prev, curr, got
+    for rig in ("flagship", "harsh"):
+        hom = k3_homographies(cfg, rig == "harsh")
+        D = hom.shape[1]
+        foot = k3_footprint(hom, Hc, Wc)
+        for C in (128, 256):
+            prev = randn(gen, (BN, Hc, Wc, C), 1.0, torch.bfloat16)
+            curr = randn(gen, (BN, Hc, Wc, C), 1.0, torch.bfloat16)
+            args = (prev, curr, hom, 5.0)
+            got = k3.plane_sweep_cost_hom(*args)
+            r = compare("plane_sweep_cost_hom", got,
+                        k3.plane_sweep_cost_hom_plain(*args))
+            r["bit_identical"] = torch.equal(
+                got, k3.plane_sweep_cost_hom(*args))
+            r["ms"] = cuda_ms(lambda: k3.plane_sweep_cost_hom(*args))
+            r["plain_ms"] = cuda_ms(
+                lambda: k3.plane_sweep_cost_hom_plain(*args))
+            r["shape"] = f"{rig} rig BN{BN} D{D} {Hc}x{Wc}x{C}"
+            # per channel of each (pixel, plane), 9 FP32 operations: curr
+            # less the four weighted corners (4 FMA, 2 each), then |.| added
+            # (1 add; the abs is an operand modifier)
+            r.update(work(2 * BN * Hc * Wc * C * 2 + hom.numel() * 4
+                          + BN * D * Hc * Wc * 4, 9 * BN * D * Hc * Wc * C,
+                          F32_FLOPS), extra=(rig, C) != ("flagship", 128))
+            r["empty_sample_share"] = empty_share(got, curr, 5.0)
+            if C == 128:
+                r["footprint"] = foot
+            rows.append(r)
+            del prev, curr, got
     return rows
 
 
 def check_cost_volume_grid(gen):
     """K7 at the per-stage bench's shapes and warp (128 channels), and at
-    256 channels (marked `extra`)."""
+    256 channels (marked `extra`); bit-identical over two runs."""
     from preworld_tpu_torch.ops import cost_volume_pallas as k7
     from preworld_tpu_torch.tools.bench_parts import smooth_warp_grid
 
@@ -1125,12 +1197,13 @@ def check_cost_volume_grid(gen):
         args = (prev, curr, grid, 5.0)
         got = k7.plane_sweep_cost(*args)
         r = compare("plane_sweep_cost", got, k7.plane_sweep_cost_plain(*args))
+        r["bit_identical"] = torch.equal(got, k7.plane_sweep_cost(*args))
         r["ms"] = cuda_ms(lambda: k7.plane_sweep_cost(*args))
         r["plain_ms"] = cuda_ms(lambda: k7.plane_sweep_cost_plain(*args))
         r["shape"] = f"BN{BN} D{D} {H}x{W}x{C}"
         # as K3, and the grid read once
         r.update(work(2 * BN * H * W * C * 2 + grid.numel() * 4
-                      + BN * D * H * W * 4, 11 * BN * D * H * W * C,
+                      + BN * D * H * W * 4, 9 * BN * D * H * W * C,
                       F32_FLOPS), extra=C != BENCH_CV["C"])
         r["empty_sample_share"] = empty_share(got, curr, 5.0)
         rows.append(r)
@@ -1138,7 +1211,49 @@ def check_cost_volume_grid(gen):
     return rows
 
 
+def k4_edge_cases(gen, C=32, nv=500, npix=64):
+    """K4's kernels on ids the flagship's geometry never makes: negative ids
+    (dropped, as searchsorted's bounds drop them) beside sentinels and one
+    voxel holding 300 points (the slices' case), and no points at all. Each
+    case holds `bev_pool_sorted` against the plain `bev_pool` over the points
+    it keeps, and its starts against the plain twin and searchsorted."""
+    from preworld_tpu_torch.ops import bev_pool_pallas as k4
+    from preworld_tpu_torch.ops.bev_pool import bev_pool
+
+    ok = {}
+    for case, P in (("negative_ids", 4000), ("no_points", 0)):
+        vox = torch.randint(-40, nv + 40, (P,), generator=gen, device="cuda")
+        vox[:min(P, 300)] = 7
+        pix = torch.randint(0, npix, (P,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+        depth = torch.rand((P,), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        feat = randn(gen, (npix, C), 1.0, torch.bfloat16)
+        ids, order = k4.bev_pool_prepare(vox)
+        out, starts = k4.bev_pool_sorted(ids, order, depth, pix, feat, nv)
+        keep = vox >= 0
+        r = compare("bev_pool_fused", out,
+                    bev_pool(depth[keep], feat, vox[keep], pix[keep], nv))
+        bounds = torch.arange(nv + 1, dtype=torch.int32, device="cuda")
+        ok[case] = (r["n_bad"] == 0
+                    and torch.equal(starts, k4.interval_starts_plain(ids, nv))
+                    and torch.equal(starts, torch.searchsorted(
+                        ids, bounds).to(torch.int32)))
+    return ok
+
+
 def check_bev_pool(gen, cfg):
+    """K4 at the flagship's points (temporal frame 0, C 32): the wrapper
+    `bev_pool_fused` against the plain `bev_pool` and bit-identical over
+    two calls; the boundary pass's interval starts equal to its plain twin
+    and to torch.searchsorted. Times: the kernels alone (`ms`: the boundary
+    pass, the long intervals' slices and the interval walk, device ms from
+    torch.profiler, each in `kernel_ms`; `sorted_ms`: CUDA events around
+    `bev_pool_sorted`), the whole wrapper (sort included; `wrapper_ms`, and
+    its device ms `wrapper_device_ms`) and the plain version. The kernels'
+    bound counts what they move: the sorted ids, per in-grid point its order,
+    depth and pixel, the feature rows once, the interval starts and the
+    output."""
     from preworld_tpu_torch.geometry import (
         create_frustum,
         frustum_pixel_indices,
@@ -1160,17 +1275,50 @@ def check_bev_pool(gen, cfg):
     feat = randn(gen, (1, N, Hf, Wf, cfg.num_trans_channels), 1.0,
                  torch.bfloat16)
     nv = cfg.grid.num_voxels
-    args = (depth, feat, vox, pix, nv)
-    r = compare("bev_pool_fused", k4.bev_pool_fused(*args), bev_pool(*args))
-    r["ms"] = cuda_ms(lambda: k4.bev_pool_fused(*args))
-    r["plain_ms"] = cuda_ms(lambda: bev_pool(*args))
-    r["shape"] = f"P{vox.numel()} C{feat.shape[-1]} V{nv}"
-    r["points_in_grid"] = int((vox < nv).sum())
     C = feat.shape[-1]
+    args = (depth, feat, vox, pix, nv)
+    got = k4.bev_pool_fused(*args)
+    r = compare("bev_pool_fused", got, bev_pool(*args))
+    ids, order = k4.bev_pool_prepare(vox)
+    sorted_args = (ids, order, depth.reshape(-1), pix.reshape(-1).to(
+        torch.int32), feat.reshape(-1, C), nv)
+    out, starts = k4.bev_pool_sorted(*sorted_args)
+    bounds = torch.arange(nv + 1, dtype=torch.int32, device="cuda")
+    r["starts_exact"] = (
+        torch.equal(starts, k4.interval_starts_plain(ids, nv))
+        and torch.equal(starts, torch.searchsorted(ids, bounds).to(
+            torch.int32)))
+    r["bit_identical"] = (torch.equal(got, k4.bev_pool_fused(*args))
+                          and torch.equal(got, out))
+    lengths = starts[1:] - starts[:-1]
+    r["points_in_grid"] = int(starts[-1])
+    r["nonempty_voxels"] = int((lengths > 0).sum())
+    r["longest_interval"] = int(lengths.max())
+    r["mean_interval"] = r["points_in_grid"] / max(r["nonempty_voxels"], 1)
+    r["edge_cases"] = k4_edge_cases(gen)
+    reps = 5
+    prof = profile_call(lambda: [k4.bev_pool_fused(*args)
+                                 for _ in range(reps)])
+    kern = [k for k in prof["top_kernels"] if "pw::bev_pool" in k["name"]]
+    if len(kern) != 3 or any(k["count"] != reps for k in kern):
+        raise AssertionError(f"kernel K4: profiled kernels {kern}")
+    r["ms"] = sum(k["ms"] for k in kern) / reps
+    r["wrapper_device_ms"] = prof["device_busy_ms"] / reps
+    r["kernel_ms"] = {re.search(r"bev_pool_\w*kernel", k["name"]).group():
+                      k["ms"] / reps for k in kern}
+    r["sorted_ms"] = cuda_ms(lambda: k4.bev_pool_sorted(*sorted_args))
+    r["wrapper_ms"] = cuda_ms(lambda: k4.bev_pool_fused(*args))
+    r["plain_ms"] = cuda_ms(lambda: bev_pool(*args))
+    r["shape"] = f"P{vox.numel()} C{C} V{nv}"
+    P, Pin = vox.numel(), r["points_in_grid"]
     # one multiply-add per channel of each point inside the grid
-    r.update(work(2 * (depth.numel() + feat.numel()) + 4 * vox.numel()
-                  + 4 * pix.numel() + 2 * nv * C,
-                  2 * r["points_in_grid"] * C, F32_FLOPS))
+    r.update(work(4 * P + 14 * Pin + 2 * feat.numel() + 4 * (nv + 1)
+                  + 2 * nv * C, 2 * Pin * C, F32_FLOPS))
+    # the wrapper's work: its inputs once (depth, feat, voxel and pixel
+    # ids) and the output
+    r["wrapper_bound_ms"] = bound([work(
+        2 * (depth.numel() + feat.numel()) + 4 * vox.numel()
+        + 4 * pix.numel() + 2 * nv * C, 2 * Pin * C, F32_FLOPS)])[0]
     return r
 
 
@@ -1830,7 +1978,9 @@ def main() -> int:
             if r is None:
                 continue
             ok = (r["n_bad"] == 0 and r.get("bit_identical", True)
-                  and r.get("pad_decoy_n_bad", 1) > 0)
+                  and r.get("pad_decoy_n_bad", 1) > 0
+                  and r.get("starts_exact", True)
+                  and all(r.get("edge_cases", {}).values()))
             if not ok:
                 failures.append(f"kernel {label} {r['shape']}")
             lib = (f", F.scaled_dot_product_attention {r['library_ms']:.3f} ms"
@@ -1850,6 +2000,37 @@ def main() -> int:
                    f"{r['max_abs_err']:.3g}, max rel err {r['max_rel_err']:.3g}"
                    f", {r['n_bad']} of {r['numel']} outside atol {atol} + "
                    f"rtol {rtol}{same}{times}")
+            if "ms" in r and label in ("K3", "K4", "K7"):
+                bnd, by = bound([r])
+                status(f"kernel {label}", f"{r['shape']}: bound {bnd:.4f} ms "
+                       f"({by}), {bnd / r['ms']:.1%} of the kernel's time")
+            if "footprint" in r:
+                f = r["footprint"]
+                status(f"kernel {label}", f"{r['shape'].split(' BN')[0]} "
+                       f"footprint: {f['in_range']:.4f} of samples in range, "
+                       f"{f['corners_kept']:.4f} keep the corners of the "
+                       f"plane before; per {f['tile']}-pixel row tile and "
+                       f"plane, corner box rows {f['box_rows']} and columns "
+                       f"{f['box_columns']} (median, p90, p99, max), "
+                       f"{f['boxes_over_budget']:.4f} of boxes over "
+                       f"{f['budget_pixels']} pixels")
+            if "wrapper_ms" in r:
+                status(f"kernel {label}",
+                       f"kernels alone {r['ms']:.4f} ms device ("
+                       + ", ".join(f"{n} {v:.4f}"
+                                   for n, v in r["kernel_ms"].items())
+                       + f"), {r['sorted_ms']:.4f} ms "
+                       f"events around bev_pool_sorted; bev_pool_fused "
+                       f"{r['wrapper_ms']:.4f} ms (device busy "
+                       f"{r['wrapper_device_ms']:.4f}, sort included), "
+                       f"bound {r['wrapper_bound_ms']:.4f} ms; "
+                       f"{r['points_in_grid']} points in the grid over "
+                       f"{r['nonempty_voxels']} voxels, mean "
+                       f"{r['mean_interval']:.2f}, longest interval "
+                       f"{r['longest_interval']}; starts equal to the plain "
+                       f"twin and searchsorted {r['starts_exact']}; "
+                       f"edge cases against the plain version "
+                       f"{r['edge_cases']}")
         # K5 / K6: each stage's unmasked and masked time on its own line
         by_stage = {}
         for r in rows.get(name) or []:

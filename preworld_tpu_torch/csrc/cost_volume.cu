@@ -20,21 +20,39 @@
 // sub-window approximations (an MXU one-hot contraction) are not carried
 // over -- on this card a bilinear gather is four coalesced row reads.
 //
-// Layout: one warp per output pixel (bn, y, x); the C channels go over the
-// lanes in NCH chunks of 128, CPL = 4 contiguous channels of each chunk per
-// lane. The warp keeps its curr row in registers and walks all D planes.
-// The coordinate and interpolation arithmetic uses explicitly rounded
-// operations (no FMA contraction) in the same order as the plain PyTorch
-// version, so both land on the same sample positions and the same "sampled
-// nothing" flags. Built for C = 128 k, k = 1 ... 12: every stereo width the
-// route admits (a multiple of 128) up to 1536, past every Swin stage-0
-// width (96 ... 192).
+// Bound on H100: read afresh for every (pixel, plane), the four C-wide
+// bf16 corner rows from the previous frame's map (11.5 MB a camera at the
+// flagship 128 x 352 x 128, resident in L2) come to ~24 GB a call, and the
+// first port of this kernel sat on L2's bandwidth at ~5 ms. With the
+// corners reused this design is bound by instruction issue (~5 FP32
+// instructions per channel and sample, plus the per-plane and reload
+// overhead): a measurement build that skipped the corner loads was no
+// faster.
 //
-// Bound on H100: gathers -- per (pixel, plane) four C-wide bf16 rows from
-// the previous frame's feature map (one camera's map, 11.5 MB at the
-// flagship 128 x 352 x 128, stays in L2), i.e. L2 bandwidth. K7 streams the
-// grid besides (8 bytes per pixel and plane, read once, 190 MB at the bench
-// shape).
+// Layout: a block takes a row tile of PX output pixels (bn, y, x ... x +
+// PX - 1) and walks all D planes. LPP lanes own a pixel: in each
+// 128-channel chunk, lane g holds VPL 16-byte vectors, channels 8 (v LPP +
+// g) ... + 7, so each load instruction reads whole 128-byte lines. The
+// planes go in batches of LPP: lane g computes the sample position of plane
+// d0 + g and the group reads it by shuffle. What the design does about the
+// bound:
+//   * corners reused across planes: each lane keeps its pixel's four corner
+//     vectors in registers, converted to f32, and reloads them only when
+//     floor(gx), floor(gy) or the in-range state change (75 % of the
+//     flagship's samples keep the corners of the plane before);
+//   * one FMA chain per channel, t = cur - w00 v00 - w01 v01 - w10 v10 -
+//     w11 v11, acc += |t|, with the weights formed once per (pixel, plane);
+//   * each plane's partial cost is summed over the group by shuffles, and
+//     lane g keeps plane d0 + g's (chunks of a C > 128 add to it); the block
+//     stages a batch's costs in shared memory and stores them coalesced
+//     along x.
+// Kept exactly as in the plain version (`_sample_cost`): the sample
+// position, floor, the in-range and behind-camera tests and the "sampled
+// nothing" flag, whose channel C - 4 is sampled in the plain version's order
+// of operations (explicitly rounded, no contraction). Only the channel sum
+// differs in order and rounding. No atomics: bit-identical run to run.
+// Built for C = 128 k, k = 1 ... 12: every stereo width the route admits (a
+// multiple of 128) up to 1536.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -43,9 +61,21 @@ namespace pw {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int CPL = 4;         // channels per lane in one chunk
-constexpr int CHUNK = CPL * 32;  // channels per chunk
-constexpr int MAX_NCH = 12;      // C up to 1536
+constexpr int CHUNK = 128;                  // channels per chunk
+constexpr int MAX_NCH = 12;                 // C up to 1536
+constexpr int LPP = 8;                      // lanes per pixel, planes per batch
+constexpr int VPL = CHUNK / 8 / LPP;        // 16-byte vectors per lane and chunk
+constexpr int CPL = VPL * 8;                // channels per lane and chunk
+constexpr int THREADS = 256;
+constexpr int PX = THREADS / LPP;           // pixels per block (row tile)
+constexpr unsigned FULL = 0xffffffffu;
+// channel C - 4 is chunk channel 124: vector 15, element 4
+constexpr int FLAG_LANE = 15 % LPP;
+constexpr int FLAG_SLOT = (15 / LPP) * 8 + 4;
+// sample state of a (pixel, plane): (y0 + 1) << 16 | (x0 + 1) in range,
+// else KEY_NONE; KEY_STALE marks corner registers that hold nothing yet
+constexpr int KEY_NONE = -1;
+constexpr int KEY_STALE = -2;
 
 // K3: (BN, D, 3, 3) f32 homographies
 struct HomCoords {
@@ -76,75 +106,156 @@ struct GridCoords {
   }
 };
 
+// 8 bf16 (one 16-byte vector) to f32
+__device__ __forceinline__ void unpack8(const uint4 r, float* f) {
+  const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+__device__ __forceinline__ uint4 ldg16(const bf16* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+// this lane's channels of one 128-channel chunk of a feature row
+__device__ __forceinline__ void load_row(const bf16* row, float (&f)[CPL]) {
+#pragma unroll
+  for (int v = 0; v < VPL; ++v) unpack8(ldg16(row + v * LPP * 8), f + v * 8);
+}
+
+// this lane's channels of the four corners of sample state `key`, zero where
+// a corner lies outside the map (or the position samples nothing); `base`
+// points at the lane's channels of the chunk in pixel (0, 0)
+template <int C>
+__device__ __forceinline__ void load_corners(const bf16* base, int key, int W, int H,
+                                             float (&cv)[4][CPL]) {
+  const int x0 = (key & 0xffff) - 1, y0 = (key >> 16) - 1;
+  const bool in = key >= 0;
+  const bool ok[4] = {in && y0 >= 0 && x0 >= 0, in && y0 >= 0 && x0 + 1 < W,
+                      in && y0 + 1 < H && x0 >= 0, in && y0 + 1 < H && x0 + 1 < W};
+  const bf16* r0 = base + ((long long)y0 * W + x0) * C;
+  const bf16* rows[4] = {r0, r0 + C, r0 + (long long)W * C, r0 + (long long)W * C + C};
+  uint4 raw[4][VPL];
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int v = 0; v < VPL; ++v) {
+      raw[c][v] = ok[c] ? ldg16(rows[c] + v * LPP * 8) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+#pragma unroll
+    for (int v = 0; v < VPL; ++v) unpack8(raw[c][v], cv[c] + v * 8);
+}
+
+// the sample state of pixel (x, y) on plane d (d >= D: none): key, and the
+// weights wx1, wy1 of the corners x0 + 1, y0 + 1
+template <class Coords>
+__device__ __forceinline__ void sample_state(const Coords& coords, int bn, int d, int x, int y,
+                                             int D, int H, int W, int& key, float& wx1,
+                                             float& wy1) {
+  key = KEY_NONE;
+  wx1 = wy1 = 0.f;
+  float gx, gy;
+  if (d < D && coords(bn, d, x, y, gx, gy) && gx > -1.f && gx < (float)W && gy > -1.f &&
+      gy < (float)H) {
+    const float x0f = floorf(gx), y0f = floorf(gy);
+    wx1 = __fsub_rn(gx, x0f);
+    wy1 = __fsub_rn(gy, y0f);
+    key = ((int)y0f + 1) << 16 | ((int)x0f + 1);
+  }
+}
+
 template <int NCH, class Coords>
-__global__ void plane_sweep_kernel(const bf16* __restrict__ prev, const bf16* __restrict__ curr,
-                                   Coords coords, float* __restrict__ out, int BN, int D,
-                                   int H, int W, float bias) {
+__global__ void __launch_bounds__(THREADS, 2)
+    plane_sweep_kernel(const bf16* __restrict__ prev, const bf16* __restrict__ curr,
+                       Coords coords, float* __restrict__ out, int D, int H, int W,
+                       float bias) {
   constexpr int C = NCH * CHUNK;
-  const int lane = threadIdx.x & 31;
-  const long long pix = (long long)blockIdx.x * (blockDim.x / 32) + (threadIdx.x >> 5);
-  if (pix >= (long long)BN * H * W) return;
-  const int x = (int)(pix % W);
-  const int y = (int)((pix / W) % H);
-  const int bn = (int)(pix / ((long long)W * H));
+  __shared__ float stage[LPP][PX + 1];
+  const int tid = threadIdx.x;
+  const int g = tid % LPP;  // lane within the pixel's group
+  const int p = tid / LPP;  // pixel within the tile
+  const int tiles = (W + PX - 1) / PX;
+  const int tile = blockIdx.x % tiles;
+  const int y = (blockIdx.x / tiles) % H;
+  const int bn = blockIdx.x / (tiles * H);
+  // a ragged last tile's spare pixels repeat the row's last pixel, unstored
+  const int x = min(tile * PX + p, W - 1);
+  const bf16* pimg = prev + (size_t)bn * H * W * C + g * 8;
+  const bf16* crow = curr + (((size_t)bn * H + y) * W + x) * C + g * 8;
 
-  float cur[NCH][CPL];
-  const bf16* crow = curr + (size_t)pix * C + lane * CPL;
-#pragma unroll
-  for (int k = 0; k < NCH; ++k)
-#pragma unroll
-    for (int i = 0; i < CPL; ++i) cur[k][i] = __bfloat162float(crow[k * CHUNK + i]);
-  const bf16* pimg = prev + (size_t)bn * H * W * C + lane * CPL;
+  float cur[CPL];
+  float cv[4][CPL];
+  int key = KEY_STALE;
+  if constexpr (NCH == 1) load_row(crow, cur);
 
-  for (int d = 0; d < D; ++d) {
-    float s[NCH][CPL];
-#pragma unroll
-    for (int k = 0; k < NCH; ++k)
-#pragma unroll
-      for (int i = 0; i < CPL; ++i) s[k][i] = 0.f;
-    float gx, gy;
-    if (coords(bn, d, x, y, gx, gy) && gx > -1.f && gx < (float)W && gy > -1.f &&
-        gy < (float)H) {
-      float x0f = floorf(gx), y0f = floorf(gy);
-      float wx1 = __fsub_rn(gx, x0f), wy1 = __fsub_rn(gy, y0f);
-      float wx0 = __fsub_rn(1.f, wx1), wy0 = __fsub_rn(1.f, wy1);
-      int x0 = (int)x0f, y0 = (int)y0f;
-      bool vx0 = x0 >= 0, vx1 = x0 + 1 < W, vy0 = y0 >= 0, vy1 = y0 + 1 < H;
-      // corner rows; only the in-range corners are read
-      const bf16* r0 = pimg + ((long long)y0 * W + x0) * C;
-      const bf16* r1 = r0 + (long long)W * C;
-#pragma unroll
-      for (int k = 0; k < NCH; ++k) {
-        const int c0 = k * CHUNK;
-        float v00[CPL], v01[CPL], v10[CPL], v11[CPL];
-#pragma unroll
-        for (int i = 0; i < CPL; ++i) v00[i] = v01[i] = v10[i] = v11[i] = 0.f;
+  // the sample state of plane d0 + g, computed by lane g a batch ahead
+  int nx_key;
+  float nx_wx, nx_wy;
+  sample_state(coords, bn, g, x, y, D, H, W, nx_key, nx_wx, nx_wy);
+  for (int d0 = 0; d0 < D; d0 += LPP) {
+    const int my_key = nx_key;
+    const float my_wx = nx_wx, my_wy = nx_wy;
+    sample_state(coords, bn, d0 + LPP + g, x, y, D, H, W, nx_key, nx_wx, nx_wy);
+    float mine = 0.f;  // lane g: plane d0 + g's cost
+    unsigned empty = 0;  // bit j: plane d0 + j sampled nothing (FLAG_LANE's)
+    for (int k = 0; k < NCH; ++k) {
+      if constexpr (NCH > 1) {
+        load_row(crow + k * CHUNK, cur);
+        key = KEY_STALE;
+      }
+#pragma unroll 1
+      for (int j = 0; j < LPP; ++j) {
+        const int kj = __shfl_sync(FULL, my_key, j, LPP);
+        const float wx1 = __shfl_sync(FULL, my_wx, j, LPP);
+        const float wy1 = __shfl_sync(FULL, my_wy, j, LPP);
+        if (kj != key) {
+          key = kj;
+          load_corners<C>(pimg + k * CHUNK, kj, W, H, cv);
+        }
+        const float wx0 = __fsub_rn(1.f, wx1), wy0 = __fsub_rn(1.f, wy1);
+        const float w00 = wx0 * wy0, w01 = wx1 * wy0, w10 = wx0 * wy1, w11 = wx1 * wy1;
+        float a0 = 0.f, a1 = 0.f;
 #pragma unroll
         for (int i = 0; i < CPL; ++i) {
-          if (vy0 && vx0) v00[i] = __bfloat162float(r0[c0 + i]);
-          if (vy0 && vx1) v01[i] = __bfloat162float(r0[C + c0 + i]);
-          if (vy1 && vx0) v10[i] = __bfloat162float(r1[c0 + i]);
-          if (vy1 && vx1) v11[i] = __bfloat162float(r1[C + c0 + i]);
+          float t;
+          if (i == FLAG_SLOT) {
+            // the plain version's bilinear, operation for operation
+            const float top = __fadd_rn(__fmul_rn(cv[0][i], wx0), __fmul_rn(cv[1][i], wx1));
+            const float bot = __fadd_rn(__fmul_rn(cv[2][i], wx0), __fmul_rn(cv[3][i], wx1));
+            const float s = __fadd_rn(__fmul_rn(top, wy0), __fmul_rn(bot, wy1));
+            if (k == NCH - 1 && s == 0.f) empty |= 1u << j;
+            t = cur[i] - s;
+          } else {
+            t = fmaf(-w00, cv[0][i], cur[i]);
+            t = fmaf(-w01, cv[1][i], t);
+            t = fmaf(-w10, cv[2][i], t);
+            t = fmaf(-w11, cv[3][i], t);
+          }
+          if (i & 1)
+            a1 += fabsf(t);
+          else
+            a0 += fabsf(t);
         }
+        // the group's sum, the same bits in every lane (each level adds a
+        // commutative pair)
+        float tot = a0 + a1;
 #pragma unroll
-        for (int i = 0; i < CPL; ++i) {
-          float top = __fadd_rn(__fmul_rn(v00[i], wx0), __fmul_rn(v01[i], wx1));
-          float bot = __fadd_rn(__fmul_rn(v10[i], wx0), __fmul_rn(v11[i], wx1));
-          s[k][i] = __fadd_rn(__fmul_rn(top, wy0), __fmul_rn(bot, wy1));
-        }
+        for (int o = 1; o < LPP; o <<= 1) tot += __shfl_xor_sync(FULL, tot, o);
+        if (g == j) mine += tot;
       }
     }
-    float acc = 0.f;
-#pragma unroll
-    for (int k = 0; k < NCH; ++k)
-#pragma unroll
-      for (int i = 0; i < CPL; ++i) acc += fabsf(cur[k][i] - s[k][i]);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    // the "sampled nothing" channel C - 4: the last chunk's lane 31, slot 0
-    const float sci = __shfl_sync(0xffffffffu, s[NCH - 1][0], 31);
-    if (lane == 0)
-      out[(((size_t)bn * D + d) * H + y) * W + x] = acc + (sci == 0.f ? bias : 0.f);
+    const unsigned emp = __shfl_sync(FULL, empty, FLAG_LANE, LPP);
+    stage[g][p] = mine + ((emp >> g & 1u) ? bias : 0.f);
+    __syncthreads();
+    const int j = tid / PX, xo = tile * PX + tid % PX;
+    if (d0 + j < D && xo < W)
+      out[(((size_t)bn * D + d0 + j) * H + y) * W + xo] = stage[j][tid % PX];
+    __syncthreads();
   }
 }
 
@@ -152,11 +263,10 @@ template <int NCH, class Coords>
 int launch_plane_sweep(const bf16* prev, const bf16* curr, Coords coords, float* out, int BN,
                        int D, int H, int W, int C, float bias, cudaStream_t stream) {
   if (C == NCH * CHUNK) {
-    const int warps_per_block = 8;
-    const long long pixels = (long long)BN * H * W;
-    const unsigned blocks = (unsigned)((pixels + warps_per_block - 1) / warps_per_block);
-    plane_sweep_kernel<NCH, Coords><<<blocks, 32 * warps_per_block, 0, stream>>>(
-        prev, curr, coords, out, BN, D, H, W, bias);
+    if (W > 65534 || H > 32766) return (int)cudaErrorInvalidValue;  // sample-state packing
+    const long long blocks = (long long)BN * H * ((W + PX - 1) / PX);
+    plane_sweep_kernel<NCH, Coords><<<(unsigned)blocks, THREADS, 0, stream>>>(
+        prev, curr, coords, out, D, H, W, bias);
     return (int)cudaGetLastError();
   }
   if constexpr (NCH < MAX_NCH)

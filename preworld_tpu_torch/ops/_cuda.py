@@ -48,7 +48,8 @@ _SIGNATURES = {
     "pw_swin_mlp": [_P] * 11 + [_I] * 3 + [_P],
     "pw_plane_sweep_cost_hom": [_P] * 4 + [_I] * 5 + [_F, _P],
     "pw_plane_sweep_cost_grid": [_P] * 4 + [_I] * 5 + [_F, _P],
-    "pw_bev_pool_intervals": [_P] * 5 + [_I] * 2 + [_P],
+    "pw_bev_pool_intervals": [_P] * 9 + [_I] * 3 + [_P],
+    "pw_bev_pool_slices": [_I],
     "pw_swin_attn_block_bwd": [_P] * 23 + [_I] * 9 + [_F, _P],
     "pw_swin_attn_block_bwd_part_elems": [_I] * 6,
     "pw_swin_mlp_bwd": [_P] * 19 + [_I] * 3 + [_P],

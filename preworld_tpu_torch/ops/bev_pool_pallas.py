@@ -1,13 +1,16 @@
 """K4: voxel pooling over voxel-sorted frustum points.
 
 Counterpart of `preworld_tpu/ops/bev_pool_pallas.py` (same module name;
-nothing here is Pallas). `bev_pool_fused` keeps the JAX package's prep
-outside the kernel -- sort the points by voxel id carrying depth and pixel
-index, then find every voxel's interval of sorted points -- and on a CUDA
-tensor launches `csrc/bev_pool.cu`, which walks the intervals with one
-thread per (voxel, channel), gathers feat[pix] * depth itself and writes
-zeros for empty voxels (no atomics: deterministic). On a CPU tensor it runs
-the plain `ops.bev_pool.bev_pool`.
+nothing here is Pallas). `bev_pool_fused` keeps the JAX package's sort
+outside the kernel (`bev_pool_prepare`: torch.sort of the voxel ids, stable)
+and on a CUDA tensor launches `csrc/bev_pool.cu` (`bev_pool_sorted`): a
+boundary pass over the sorted ids writes every voxel's interval start
+(plain twin `interval_starts_plain`, equal to torch.searchsorted) and each
+point's depth and pixel, read through the sort's order, in sorted order;
+long intervals are summed by slices of sorted points; the interval walk
+gathers feat[pix] * depth itself and writes zeros for empty voxels (no
+atomics: deterministic). On a CPU tensor it runs the plain
+`ops.bev_pool.bev_pool`.
 
 `bev_pool_fused` is differentiable in depth and feat. Its backward is the
 JAX package's custom VJP (`_bev_pool_fused_bwd`, XLA there, plain PyTorch
@@ -25,17 +28,58 @@ from . import _cuda
 from .bev_pool import bev_pool
 
 
-def bev_pool_prepare(depth, vox_idx, pix_idx, num_voxels: int):
-    """Sort points by voxel id; returns (depth, pix, starts) with
-    starts (num_voxels + 1,) int32 such that voxel v owns the sorted points
-    [starts[v], starts[v+1]). Sentinel points sort past starts[num_voxels]."""
-    v = vox_idx.reshape(-1).to(torch.int32)
-    v_s, order = torch.sort(v, stable=True)
-    d_s = depth.reshape(-1)[order].contiguous()
-    p_s = pix_idx.reshape(-1)[order].to(torch.int32).contiguous()
-    bounds = torch.arange(num_voxels + 1, dtype=torch.int32, device=v.device)
-    starts = torch.searchsorted(v_s, bounds).to(torch.int32)
-    return d_s, p_s, starts
+def bev_pool_prepare(vox_idx):
+    """Sort the points by voxel id (stable): (ids, order), the sorted int32
+    ids and the sort's int64 permutation. The kernel reads each point's
+    depth and pixel through `order`."""
+    return torch.sort(vox_idx.reshape(-1).to(torch.int32), stable=True)
+
+
+def interval_starts_plain(ids, num_voxels: int):
+    """The kernel's boundary pass in plain PyTorch: with u the sorted ids
+    clipped to [-1, num_voxels], sorted point i starts the voxels (u[i-1],
+    u[i]] (u[-1] = -1, u[P] = num_voxels). Returns starts (num_voxels + 1,)
+    int32: voxel v owns the sorted points [starts[v], starts[v+1]); sentinel
+    points sort past starts[num_voxels], points with a negative id before
+    starts[0]. Equal to torch.searchsorted(ids, arange)."""
+    u = ids.clamp(-1, num_voxels).long()
+    lo = torch.cat([u.new_full((1,), -1), u])  # u[i-1], i = 0 ... P
+    hi = torch.cat([u, u.new_full((1,), num_voxels)])  # u[i]
+    first = torch.arange(u.numel() + 1, dtype=torch.int32, device=ids.device)
+    return torch.repeat_interleave(first, hi - lo)
+
+
+def bev_pool_sorted(ids, order, depth, pix, feat, num_voxels: int):
+    """K4's kernels on CUDA tensors, after the sort: the boundary pass, the
+    long intervals' slices and the interval walk. ids, order from
+    `bev_pool_prepare`; depth (P,) bf16 and pix (P,) int32 in the points'
+    original order; feat (num_pixels, C) bf16, C % 8 == 0 up to 256.
+    Returns (out (num_voxels, C) bf16, starts (num_voxels + 1,) int32)."""
+    P, C = ids.numel(), feat.shape[-1]
+    bf = torch.bfloat16
+    _cuda.require(ids, "ids", torch.int32, (P,))
+    _cuda.require(order, "order", torch.int64, (P,))
+    _cuda.require(depth, "depth", bf, (P,))
+    _cuda.require(pix, "pix", torch.int32, (P,))
+    _cuda.require(feat, "feat", bf)
+    if C % 8 or not 0 < C <= 256:
+        raise ValueError(f"K4 takes C % 8 == 0 up to 256, got {C}")
+    dev = feat.device
+    lib = _cuda.lib()
+    # scratch: packed (pixel, depth) of the sorted points, then the starts;
+    # the long intervals' partial sums per slice of sorted points
+    ints = torch.empty(2 * P + num_voxels + 1, dtype=torch.int32, device=dev)
+    parts = torch.empty((2, lib.pw_bev_pool_slices(P), C), dtype=torch.float32,
+                        device=dev)
+    out = torch.empty((num_voxels, C), dtype=bf, device=dev)
+    rc = lib.pw_bev_pool_intervals(
+        ids.data_ptr(), order.data_ptr(), depth.data_ptr(), pix.data_ptr(),
+        feat.data_ptr(), ints.data_ptr() + 8 * P, ints.data_ptr(),
+        parts.data_ptr(), out.data_ptr(), P, num_voxels, C,
+        _cuda.stream_ptr(dev))
+    _cuda.check(rc, "bev_pool_fused")
+    _cuda.launches["bev_pool_fused"] += 1
+    return out, ints[2 * P:]
 
 
 def bev_pool_fused_bwd(depth, feat, vox_idx, num_voxels: int, g):
@@ -52,24 +96,13 @@ def bev_pool_fused_bwd(depth, feat, vox_idx, num_voxels: int, g):
 
 
 def _forward_cuda(depth, feat, vox_idx, pix_idx, num_voxels: int):
-    C = feat.shape[-1]
-    bf = torch.bfloat16
-    _cuda.require(feat, "feat", bf)
-    if depth.dtype != bf:
-        raise TypeError(f"depth: expected {bf}, got {depth.dtype}")
     if depth.numel() != vox_idx.numel() or depth.numel() != pix_idx.numel():
         raise ValueError("depth, vox_idx and pix_idx must have one entry per point")
-    d_s, p_s, starts = bev_pool_prepare(depth, vox_idx, pix_idx, num_voxels)
-    _cuda.require(d_s, "depth", bf)
-    _cuda.require(p_s, "pix", torch.int32)
-    _cuda.require(starts, "starts", torch.int32, (num_voxels + 1,))
-    out = torch.empty((num_voxels, C), dtype=bf, device=feat.device)
-    rc = _cuda.lib().pw_bev_pool_intervals(
-        d_s.data_ptr(), p_s.data_ptr(), starts.data_ptr(), feat.data_ptr(),
-        out.data_ptr(), num_voxels, C, _cuda.stream_ptr(feat.device))
-    _cuda.check(rc, "bev_pool_fused")
-    _cuda.launches["bev_pool_fused"] += 1
-    return out
+    ids, order = bev_pool_prepare(vox_idx)
+    return bev_pool_sorted(
+        ids, order, depth.reshape(-1).contiguous(),
+        pix_idx.reshape(-1).to(torch.int32).contiguous(),
+        feat.reshape(-1, feat.shape[-1]), num_voxels)[0]
 
 
 class _BevPool(torch.autograd.Function):

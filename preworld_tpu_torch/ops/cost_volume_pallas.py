@@ -105,6 +105,29 @@ def _plain_cost(prev, curr, D: int, coords, bias: float):
     return out
 
 
+def _hom_coords(h_all, d0: int, d1: int, xs, ys):
+    """Planes [d0, d1)'s sample positions (gx, gy) and in-front flags from
+    the (BN, D, 9) f32 homographies, in the kernel's order of operations."""
+    h = [h_all[:, d0:d1, i][:, :, None, None] for i in range(9)]
+    den = h[6] * xs + (h[7] * ys + h[8])
+    inv = 1.0 / den
+    gx = (h[0] * xs + h[1] * ys + h[2]) * inv
+    gy = (h[3] * xs + h[4] * ys + h[5]) * inv
+    return gx, gy, ~(den < 1e-3)
+
+
+def sample_positions(hom, H: int, W: int):
+    """K3's sample positions of every (pixel, plane): gx, gy (BN, D, H, W)
+    f32 and ok (BN, D, H, W) bool, True where the position samples (in
+    front of the camera and -1 < gx < W, -1 < gy < H)."""
+    BN, D = hom.shape[:2]
+    dev = hom.device
+    xs = torch.arange(W, dtype=torch.float32, device=dev)[None, None, None, :]
+    ys = torch.arange(H, dtype=torch.float32, device=dev)[None, None, :, None]
+    gx, gy, ok = _hom_coords(hom.float().reshape(BN, D, 9), 0, D, xs, ys)
+    return gx, gy, ok & (gx > -1.0) & (gx < W) & (gy > -1.0) & (gy < H)
+
+
 def plane_sweep_cost_hom_plain(prev, curr, hom, bias: float = 0.0):
     """Plain PyTorch K3 (f32 arithmetic), chunked over depth planes.
 
@@ -112,14 +135,8 @@ def plane_sweep_cost_hom_plain(prev, curr, hom, bias: float = 0.0):
     """
     BN, D = hom.shape[:2]
     h_all = hom.float().reshape(BN, D, 9)
-
     def coords(d0, d1, xs, ys):
-        h = [h_all[:, d0:d1, i][:, :, None, None] for i in range(9)]
-        den = h[6] * xs + (h[7] * ys + h[8])
-        inv = 1.0 / den
-        gx = (h[0] * xs + h[1] * ys + h[2]) * inv
-        gy = (h[3] * xs + h[4] * ys + h[5]) * inv
-        return gx, gy, ~(den < 1e-3)
+        return _hom_coords(h_all, d0, d1, xs, ys)
 
     return _plain_cost(prev, curr, D, coords, bias)
 

@@ -7,11 +7,13 @@ unpacked `git archive` of another commit). Each runs in its own process
 from its root, in the order given (A B B A cancels drift between the
 first and the last runs), so each tree builds and runs its own code:
   * kernels: the tree's `chip_smoke.check_swin`,
-    `chip_smoke.check_swin_bwd` and `chip_smoke.check_window_attn`, the
-    Swin kernels (K1, K2, their backward chains K1b, K2b, and K5, K6) at
-    the flagship shapes; per kernel (launch-counter key) the kernel ms
-    summed over those shapes and, where the check times one, the summed
-    `F.scaled_dot_product_attention` yardstick;
+    `chip_smoke.check_swin_bwd`, `chip_smoke.check_window_attn`,
+    `chip_smoke.check_cost_volume` and `chip_smoke.check_bev_pool`: the
+    Swin kernels (K1, K2, their backward chains K1b, K2b, and K5, K6), K3
+    and K4 at the flagship shapes; per kernel (launch-counter key) the
+    kernel ms summed over those shapes and, where the check times one, the
+    summed `F.scaled_dot_product_attention` yardstick; for K4 the whole
+    wrapper's ms and, where the tree times them apart, its kernels';
   * forward bits: K1 (W-MSA and SW-MSA) and K2 at every Swin-B stage on
     inputs drawn from a fixed seed, each output's SHA-256, so that turns
     show whether two trees' forward kernels give the same bits;
@@ -25,8 +27,8 @@ first and the last runs), so each tree builds and runs its own code:
     the flagship predict, ms, and the profiled request's device-busy ms)
     and `chip_smoke.run_train_flagship` for the finetune and the pretrain
     config (steps 2-3, ms, the peak bytes, the profiled step's device-busy
-    ms and its lines of column sums and split reductions), so that host
-    time shows beside the kernels'.
+    ms), each profile's K3, K4 and sort lines and the request's 12 largest
+    kernel lines, so that host time shows beside the kernels'.
 First line: the card's name and power limit; then one JSON line per turn.
 A card is required.
 """
@@ -56,12 +58,23 @@ rows = dict(cs.check_swin(gen))
 rows.update(cs.check_swin_bwd(gen))
 torch.cuda.empty_cache()
 rows.update(cs.check_window_attn(gen))
+torch.cuda.empty_cache()
+from preworld_tpu_torch.models import PreWorldConfig
+rows["plane_sweep_cost_hom"] = cs.check_cost_volume(gen, PreWorldConfig())
+torch.cuda.empty_cache()
+rows["bev_pool_fused"] = [cs.check_bev_pool(gen, PreWorldConfig())]
 kernels = {}
 for name, rs in rows.items():
     rs = [r for r in rs if not r.get("extra")]
     kernels[name] = {"ms": sum(r["ms"] for r in rs)}
     if all("library_ms" in r for r in rs):
         kernels[name]["library_ms"] = sum(r["library_ms"] for r in rs)
+# K4: the whole wrapper's CUDA-event ms (a tree that times only the wrapper
+# reports it as its ms)
+k4 = rows["bev_pool_fused"][0]
+kernels["bev_pool_fused"] = {"wrapper_ms": k4.get("wrapper_ms", k4["ms"]),
+                             "kernels_ms": k4["ms"] if "wrapper_ms" in k4
+                             else None}
 
 from preworld_tpu_torch.models.swin import shifted_window_region_ids
 from preworld_tpu_torch.ops import swin_block_pallas as k1
@@ -122,24 +135,27 @@ pre = cs.run_train_flagship("configs/preworld/preworld_7frame_pretrain.py",
                             cs.PRETRAIN_LOSSES, "pretrain-flagship")
 
 
-def sums(run):
+def lines(run, words=("plane_sweep", "bev_pool", "RadixSort")):
     return {k["name"][:60]: [k["ms"], k["count"]]
             for k in run["profile"]["top_kernels"]
-            if any(w in k["name"] for w in ("colsum", "scale_rows", "reduce_"))}
+            if any(w in k["name"] for w in words)}
 
 
 print(json.dumps({"kernels": kernels, "forward_sha256": fwd_bits, "render": {
     "losses": losses_f,
     "peak_bytes_above_inputs": peak},
     "flagship": {"request_ms": request["latency_ms"][1:],
-                 "busy_ms": request["profile"]["device_busy_ms"]},
+                 "busy_ms": request["profile"]["device_busy_ms"],
+                 "lines": lines(request),
+                 "top": [[k["name"][:60], k["ms"], k["count"]]
+                         for k in request["profile"]["top_kernels"][:12]]},
     "finetune": {"step_ms": step["step_ms"][1:],
                  "peak_bytes": step["peak_bytes"],
                  "busy_ms": step["profile"]["device_busy_ms"],
-                 "sums": sums(step)},
+                 "lines": lines(step)},
     "pretrain": {"step_ms": pre["step_ms"][1:],
                  "busy_ms": pre["profile"]["device_busy_ms"],
-                 "sums": sums(pre)}}))
+                 "lines": lines(pre)}}))
 """
 
 

@@ -57,17 +57,19 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
-def _geometry(rng, input_size, N, cv_down, with_postaug=False):
+def _geometry(rng, input_size, N, cv_down, with_postaug=False,
+              yaw_deg=4.0, ahead=1.2):
     """Numpy copy of TestPlaneSweepHom._geometry: a camera ring whose
-    adjacent frame is 1.2 m ahead and yawed 4 degrees."""
+    adjacent frame is `ahead` m ahead and yawed `yaw_deg` degrees (1.2 m
+    and 4 degrees there)."""
     grid_cfg = GridConfig(x=(-40.0, 40.0, 0.4), y=(-40.0, 40.0, 0.4),
                           z=(-1.0, 5.4, 6.4), depth=(1.0, 25.0, 1.0))
     frustum = create_frustum(grid_cfg, input_size, cv_down)
     rig = camera_rig(N, input_size, rng)
-    yaw = np.deg2rad(4.0)
+    yaw = np.deg2rad(yaw_deg)
     adj = np.eye(4, dtype=np.float32)
     adj[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
-    adj[0, 3] = 1.2
+    adj[0, 3] = ahead
     s2e = rig["sensor2ego"]
     k2s = np.stack([np.linalg.inv(s2e[n]) @ np.linalg.inv(adj) @ s2e[n]
                     for n in range(N)]).astype(np.float32)[None]
@@ -169,6 +171,34 @@ def test_kernel_plain_matches_xla_oracle(sweep):
         jnp.asarray(_hom_grid(s["hom"], s["H"], s["W"])), bias=BIAS,
         depth_chunk=8))
     got = torch.softmax(-s["cost"], dim=1).numpy()
+    np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
+
+
+def test_kernel_plain_matches_xla_oracle_on_a_yawed_rig():
+    """A rig yawed 12 degrees and 3 m ahead, whose per-plane footprints of
+    a 64-pixel row tile span up to 6 rows: past the Pallas kernel's 4-row
+    window (ROADMAP Queue 3, caveats), so the exact XLA stereo_cost_volume
+    is the oracle. softmax(-cost) of the plain K3 against it."""
+    from preworld_tpu_torch.ops.cost_volume_pallas import sample_positions
+
+    rng = np.random.default_rng(7)
+    input_size = (128, 352)
+    N, C = 3, 128
+    H, W = input_size[0] // 4, input_size[1] // 4
+    geo = _geometry(rng, input_size, N, 4, yaw_deg=12.0, ahead=3.0)
+    hom = np.asarray(jax_gen_stereo_homography(
+        *[jnp.asarray(a) for a in geo], input_size))
+    _, gy, ok = sample_positions(_t(hom), H, W)
+    y0 = torch.where(ok, torch.floor(gy), torch.nan)[..., :64]
+    rows = (y0.nan_to_num(-1e9).amax(-1) - y0.nan_to_num(1e9).amin(-1) + 2)
+    assert rows[ok[..., :64].any(-1)].max() > 4
+    prev = rng.normal(size=(N, H, W, C)).astype(np.float32)
+    curr = rng.normal(size=(N, H, W, C)).astype(np.float32)
+    ref = np.asarray(jax_stereo_cost_volume(
+        jnp.asarray(prev), jnp.asarray(curr),
+        jnp.asarray(_hom_grid(hom, H, W)), bias=BIAS, depth_chunk=8))
+    got = torch.softmax(-plane_sweep_cost_hom(_t(prev), _t(curr), _t(hom),
+                                              BIAS), dim=1).numpy()
     np.testing.assert_allclose(got, ref, rtol=TOL, atol=TOL)
 
 
