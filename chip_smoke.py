@@ -10,8 +10,10 @@ fallback to the CPU or to a kernel's plain version:
   build      nvcc builds the hand-written kernels (preworld_tpu_torch/csrc/)
              for sm_90a into preworld_tpu_torch/build/.
   kernel K*  each kernel against its plain PyTorch version on the card, at
-             the flagship shapes (K3 also at 256 channels and on a harsh
-             rig, 3 degrees of yaw and 2 m a frame, at 128 and 256; K7 at
+             the flagship shapes (K3 also at 256 channels, on a harsh
+             rig, 3 degrees of yaw and 2 m a frame, at 128 and 256, and on
+             a first streaming step's all-zero previous feature, where
+             every cost must read sum |curr| + bias; K7 at
              the shapes of the per-stage bench's cost volume, and at 256
              channels; K1 / K2 also, untimed, at Swin-T's block-route
              stages), within the stated tolerance; both timed. K1 / K2,
@@ -38,6 +40,23 @@ fallback to the CPU or to a kernel's plain version:
              at 512x1408, 3 frames, D = 88, 200x200x16 grid; backbone, necks
              and encoder in bf16, heads in f32) answers 3 requests; every
              kernel must have run on that path.
+  streaming-reference  the reference config streams 3 frames (2, 1, 0 of
+             the synthetic batch, the ego moving 0.4 m a frame, from a
+             cache initialised on frame 2), card against CPU: the logits
+             of each step under the reference gate.
+  aavt-reference  the reference check through predict's
+             `align_after_vt=True` (the adjacent frame pooled in its own
+             ego, then warped to the key ego).
+  bevstereo-reference  the BEVStereoOCC baseline on the reference config
+             with 6 cameras, card against CPU: logits under the reference
+             gate, its two losses (train mode, the same masks) within 1 %.
+  streaming-flagship  the flagship model streams 4 frames from a cache:
+             exactly 24 K1, 24 K2, 1 K3 and 1 K4 launches a step and no
+             other kernel, ms a step, peak bytes, the cache's bytes and
+             one profiled step; then `tools/verify_streaming.py`'s
+             protocol (constant pose, streaming against the full forward,
+             agreement >= 0.98) and one `predict(align_after_vt=True)`
+             request at the request's launch counts.
   kernel K1b/K2b  the backward kernel chains against their plain backward
              (autograd through the plain forward) at every Swin-B stage
              and at Swin-T's block-route stages (C 384, 768), B = 6, within
@@ -106,6 +125,11 @@ fallback to the CPU or to a kernel's plain version:
              the plain grid route against K7 through
              `stereo_cost_volume_fused`, and the render losses of 38400 rays
              on a 200x200x16 field, forward and gradient.
+  bench-entry  `python3 -m preworld_tpu_torch.tools.bench` in a process of
+             its own: exit 0, its JSON line (printed on a line of its own)
+             with every key, every time finite and positive, and the
+             launches of a request (50 / 50 / 2 / 2) and of a streaming
+             step (24 / 24 / 1 / 1).
 
 Then one JSON line of per-kernel results (launches: K1-K4 from the flagship
 predict run, K1b/K2b from the train-flagship run, K5/K5b from the
@@ -201,6 +225,20 @@ F32_FLOPS = 67e12
 EXPECTED_PER_REQUEST = dict.fromkeys(KERNELS, 0)
 EXPECTED_PER_REQUEST.update(fused_swin_attn_block=50, fused_swin_mlp=50,
                             plane_sweep_cost_hom=2, bev_pool_fused=2)
+# per streaming step: the new frame's 24 Swin blocks, its cost volume
+# against the cached stereo feature and its voxel pooling
+STREAMING_PER_STEP = dict.fromkeys(KERNELS, 0)
+STREAMING_PER_STEP.update(fused_swin_attn_block=24, fused_swin_mlp=24,
+                          plane_sweep_cost_hom=1, bev_pool_fused=1)
+# streaming-flagship: the synthetic sequence's frames 2, 1, 0 (the ego
+# moving 0.4 m a frame), then frame 0 again (the ego standing)
+STREAMING_FRAMES = (2, 1, 0, 0)
+# the keys of the bench entry's JSON line, and those that are seconds or
+# frames per second
+BENCH_KEYS = ("metric", "value", "unit", "streaming_fps", "pretrain_step_s",
+              "finetune_step_s", "card", "launches_per_request",
+              "launches_per_streaming_step")
+BENCH_TIMES = ("value", "streaming_fps", "pretrain_step_s", "finetune_step_s")
 # Swin-B stages at 512x1408, 6 images: (C, heads, Hp, Wp, H, W), ws 12
 SWIN_STAGES = [(128, 4, 132, 360, 128, 352), (256, 8, 72, 180, 64, 176),
                (512, 16, 36, 96, 32, 88), (1024, 32, 24, 48, 16, 44)]
@@ -1140,45 +1178,60 @@ def k3_footprint(hom, H: int, W: int, tile: int = 64,
             "tile": tile, "budget_pixels": budget}
 
 
+def k3_row(prev, curr, hom, shape: str) -> dict:
+    """K3 on (prev, curr, hom) against its plain version, bit-identity over
+    two runs, both timed, its work and its share of empty samples."""
+    from preworld_tpu_torch.ops import cost_volume_pallas as k3
+
+    BN, Hc, Wc, C = curr.shape
+    D = hom.shape[1]
+    args = (prev, curr, hom, 5.0)
+    got = k3.plane_sweep_cost_hom(*args)
+    r = compare("plane_sweep_cost_hom", got,
+                k3.plane_sweep_cost_hom_plain(*args))
+    r["bit_identical"] = torch.equal(got, k3.plane_sweep_cost_hom(*args))
+    r["ms"] = cuda_ms(lambda: k3.plane_sweep_cost_hom(*args))
+    r["plain_ms"] = cuda_ms(lambda: k3.plane_sweep_cost_hom_plain(*args))
+    r["shape"] = f"{shape} BN{BN} D{D} {Hc}x{Wc}x{C}"
+    # per channel of each (pixel, plane), 9 FP32 operations: curr less the
+    # four weighted corners (4 FMA, 2 each), then |.| added (1 add; the abs
+    # is an operand modifier)
+    r.update(work(2 * BN * Hc * Wc * C * 2 + hom.numel() * 4
+                  + BN * D * Hc * Wc * 4, 9 * BN * D * Hc * Wc * C,
+                  F32_FLOPS))
+    r["empty_sample_share"] = empty_share(got, curr, 5.0)
+    return r
+
+
 def check_cost_volume(gen, cfg):
     """K3 at the flagship's 128 stereo channels on the flagship rig; marked
     `extra` (checked and timed, left out of the per-kernel sums): 256
     channels (a width the route also sends to K3) and the harsh rig (HARSH_*)
-    at 128 and 256. Each against the plain version, and bit-identical over
-    two runs; each rig's sample footprint (`k3_footprint`)."""
-    from preworld_tpu_torch.ops import cost_volume_pallas as k3
-
+    at 128 and 256, and the first streaming step's all-zero previous
+    feature (every sample then fails the channel C - 4 test, so every cost
+    must read sum |curr| + bias). Each against the plain version, and
+    bit-identical over two runs; each rig's sample footprint
+    (`k3_footprint`)."""
     BN = cfg.num_cams
     Hc, Wc = cfg.input_size[0] // 4, cfg.input_size[1] // 4
     rows = []
     for rig in ("flagship", "harsh"):
         hom = k3_homographies(cfg, rig == "harsh")
-        D = hom.shape[1]
         foot = k3_footprint(hom, Hc, Wc)
         for C in (128, 256):
             prev = randn(gen, (BN, Hc, Wc, C), 1.0, torch.bfloat16)
             curr = randn(gen, (BN, Hc, Wc, C), 1.0, torch.bfloat16)
-            args = (prev, curr, hom, 5.0)
-            got = k3.plane_sweep_cost_hom(*args)
-            r = compare("plane_sweep_cost_hom", got,
-                        k3.plane_sweep_cost_hom_plain(*args))
-            r["bit_identical"] = torch.equal(
-                got, k3.plane_sweep_cost_hom(*args))
-            r["ms"] = cuda_ms(lambda: k3.plane_sweep_cost_hom(*args))
-            r["plain_ms"] = cuda_ms(
-                lambda: k3.plane_sweep_cost_hom_plain(*args))
-            r["shape"] = f"{rig} rig BN{BN} D{D} {Hc}x{Wc}x{C}"
-            # per channel of each (pixel, plane), 9 FP32 operations: curr
-            # less the four weighted corners (4 FMA, 2 each), then |.| added
-            # (1 add; the abs is an operand modifier)
-            r.update(work(2 * BN * Hc * Wc * C * 2 + hom.numel() * 4
-                          + BN * D * Hc * Wc * 4, 9 * BN * D * Hc * Wc * C,
-                          F32_FLOPS), extra=(rig, C) != ("flagship", 128))
-            r["empty_sample_share"] = empty_share(got, curr, 5.0)
+            r = k3_row(prev, curr, hom, f"{rig} rig")
+            r["extra"] = (rig, C) != ("flagship", 128)
             if C == 128:
                 r["footprint"] = foot
             rows.append(r)
-            del prev, curr, got
+            del prev, curr
+    curr = randn(gen, (BN, Hc, Wc, 128), 1.0, torch.bfloat16)
+    r = k3_row(torch.zeros_like(curr), curr, k3_homographies(cfg),
+               "first streaming step (zero previous feature), flagship rig")
+    r.update(extra=True, all_empty=r["empty_sample_share"] == 1.0)
+    rows.append(r)
     return rows
 
 
@@ -1324,40 +1377,9 @@ def check_bev_pool(gen, cfg):
 
 # ------------------------------------------------------------------- model
 
-def init_weights(model, seed: int, fan_in: bool = False) -> None:
-    """Seeded random weights: N(0, 0.02) for every parameter (or
-    N(0, 1/sqrt(fan_in)) for weight matrices and kernels when `fan_in`),
-    norm scales 1 + N(0, 0.02), BatchNorm running means N(0, 0.02) and
-    POSITIVE running variances U(0.5, 1.5)."""
-    import torch.nn as nn
-
-    gen = torch.Generator().manual_seed(seed)
-
-    def draw(t, std, mean=0.0):
-        v = torch.randn(t.shape, generator=gen) * std + mean
-        t.copy_(v)
-
-    norms = (nn.LayerNorm, nn.modules.batchnorm._BatchNorm)
+def run_heads(model, batch, align_after_vt=False):
     with torch.no_grad():
-        for m in model.modules():
-            if isinstance(m, norms):
-                draw(m.weight, 0.02, 1.0)
-                draw(m.bias, 0.02)
-                if isinstance(m, nn.modules.batchnorm._BatchNorm):
-                    draw(m.running_mean, 0.02)
-                    m.running_var.copy_(
-                        torch.rand(m.running_var.shape, generator=gen) + 0.5)
-                continue
-            for p in m.parameters(recurse=False):
-                std = 0.02
-                if fan_in and p.dim() >= 2:
-                    std = p[0].numel() ** -0.5
-                draw(p, std)
-
-
-def run_heads(model, batch):
-    with torch.no_grad():
-        vf, _ = model.extract_voxel_feat(batch)
+        vf, _ = model.extract_voxel_feat(batch, align_after_vt=align_after_vt)
         return model.occupancy_logits(vf)
 
 
@@ -1374,27 +1396,42 @@ def reference_config(**over):
     return PreWorldConfig(**dict(kw, **over))
 
 
-def check_reference(routes=None, **over):
-    """Small config (with `over`): card (bf16, kernels) against CPU (f32,
-    plain); `routes`, when given, the Swin stage routes it must take."""
-    from preworld_tpu_torch.data import synthetic_batch, to_device
+def reference_pair(cfg, model_cls=None):
+    """(CPU f32 model, card bf16 model) of `cfg` in eval mode with the same
+    seeded weights."""
     from preworld_tpu_torch.models import PreWorld
+    from preworld_tpu_torch.utils import init_weights
 
-    cfg = reference_config(**over)
-    ref = PreWorld(cfg).eval()
+    model_cls = model_cls or PreWorld
+    ref = model_cls(cfg).eval()
+    init_weights(ref, seed=1, fan_in=True)
+    card = model_cls(dataclasses.replace(cfg, dtype=torch.bfloat16)).eval()
+    card.load_state_dict(ref.state_dict())
+    return ref, card.cuda()
+
+
+def check_reference(routes=None, align_after_vt=False, **over):
+    """Small config (with `over`): card (bf16, kernels) against CPU (f32,
+    plain); `routes`, when given, the Swin stage routes it must take;
+    `align_after_vt`, the predict option."""
+    from preworld_tpu_torch.data import synthetic_batch, to_device
+
+    ref, card = reference_pair(reference_config(**over))
     if routes is not None and ref.img_backbone.stage_routes != routes:
         raise AssertionError(f"reference: routes "
                              f"{ref.img_backbone.stage_routes}, expected "
                              f"{routes}")
-    init_weights(ref, seed=1, fan_in=True)
-    card = PreWorld(dataclasses.replace(cfg, dtype=torch.bfloat16)).eval()
-    card.load_state_dict(ref.state_dict())
-    card.cuda()
-    batch = synthetic_batch(cfg, 1, seed=7)
-    want = run_heads(ref, to_device(batch, "cpu"))
-    got = run_heads(card, to_device(batch, "cuda")).float().cpu()
+    batch = synthetic_batch(ref.cfg, 1, seed=7)
+    want = run_heads(ref, to_device(batch, "cpu"), align_after_vt)
+    got = run_heads(card, to_device(batch, "cuda"), align_after_vt)
+    return card_vs_cpu("reference", got.float().cpu(), want)
+
+
+def card_vs_cpu(name: str, got, want) -> dict:
+    """Card logits against the CPU's: rel-L2 <= 0.05, and the same argmax
+    wherever the CPU's top-2 margin exceeds twice the largest error."""
     if not torch.isfinite(got).all():
-        raise AssertionError("reference: non-finite logits on the card")
+        raise AssertionError(f"{name}: non-finite logits on the card")
     err = (got - want).abs()
     rel_l2 = float(err.norm() / want.norm())
     # where the f32 top-2 margin exceeds twice the largest logit error,
@@ -1407,7 +1444,7 @@ def check_reference(routes=None, **over):
            "sure_share": float(sure.float().mean()),
            "argmax_agree_share": float(agree.float().mean())}
     if rel_l2 > 0.05 or not bool(agree[sure].all()):
-        raise AssertionError(f"reference: card vs CPU disagree: {res}")
+        raise AssertionError(f"{name}: card vs CPU disagree: {res}")
     return res
 
 
@@ -1415,6 +1452,7 @@ def run_flagship():
     from preworld_tpu_torch.data import synthetic_batch, to_device
     from preworld_tpu_torch.models import PreWorld, PreWorldConfig
     from preworld_tpu_torch.ops import _cuda
+    from preworld_tpu_torch.utils import init_weights
 
     cfg = PreWorldConfig(if_post_finetune=True, dtype=torch.bfloat16)
     model = PreWorld(cfg).eval()
@@ -1460,6 +1498,174 @@ def run_flagship():
             "occ_classes": sorted(torch.unique(occ).tolist()),
             "profile": profile_call(
                 lambda: model.predict(to_device(batches[0], "cuda")))}
+
+
+def check_streaming_reference():
+    """3 streaming steps of the reference config (frames 2, 1, 0 of the
+    synthetic batch, whose ego moves 0.4 m a frame, from a cache
+    initialised on frame 2), card (bf16, kernels) against CPU (f32, plain):
+    the occupancy logits of each step under `card_vs_cpu`."""
+    from preworld_tpu_torch.data import frame_batch, synthetic_batch, to_device
+
+    ref, card = reference_pair(reference_config())
+    batch = synthetic_batch(ref.cfg, 1, seed=7)
+    caches = {m: m.init_sequential_cache(to_device(frame_batch(batch, 2), d))
+              for m, d in ((ref, "cpu"), (card, "cuda"))}
+    res = []
+    for t in (2, 1, 0):
+        logits = {}
+        for m, d in ((ref, "cpu"), (card, "cuda")):
+            vf, caches[m] = m.sequential_voxel_feat(
+                to_device(frame_batch(batch, t), d), caches[m])
+            with torch.no_grad():
+                logits[m] = m.occupancy_logits(vf).float().cpu()
+        res.append(card_vs_cpu(f"streaming-reference frame {t}",
+                               logits[card], logits[ref]))
+    return {"steps": res}
+
+
+def check_bevstereo_reference():
+    """BEVStereoOCC on the reference config with the flagship's 6 cameras,
+    card (bf16, kernels) against CPU (f32, plain): its logits in eval mode
+    under `card_vs_cpu`, then its two losses in train mode from the same
+    batch and drop-path / dropout masks, each within TRAIN_TOL's loss_rel."""
+    from preworld_tpu_torch.data import synthetic_batch, to_device
+    from preworld_tpu_torch.models import BEVStereoOCC
+
+    ref, card = reference_pair(reference_config(num_cams=6), BEVStereoOCC)
+    batch = synthetic_batch(ref.cfg, 1, seed=7, with_labels=True)
+    logits, losses = {}, {}
+    for m, d in ((ref, "cpu"), (card, "cuda")):
+        b = to_device(batch, d)
+        with torch.no_grad():
+            logits[m] = m.occ_logits(b)[0].float().cpu()
+        m.train()
+        with torch.no_grad():
+            losses[m] = {k: float(v) for k, v in m.loss(
+                b, torch.Generator().manual_seed(11)).items()}
+    res = card_vs_cpu("bevstereo-reference", logits[card], logits[ref])
+    res["losses"] = losses[card]
+    res["losses_cpu"] = losses[ref]
+    for k, want in losses[ref].items():
+        got = losses[card][k]
+        if not abs(got - want) <= TRAIN_TOL["loss_rel"] * abs(want):
+            raise AssertionError(f"bevstereo-reference: {k} {got} on the "
+                                 f"card, {want} on the CPU")
+    return res
+
+
+def run_streaming_flagship():
+    """The flagship model (bf16, random weights) streams STREAMING_FRAMES
+    from a cache initialised on frame 2: per step exactly the launches of
+    STREAMING_PER_STEP, classes in [0, 17], ms, peak bytes and the cache's
+    bytes, and one more step profiled. Then the `verify_streaming` protocol
+    (constant pose, frames 2, 1, 0 against the full forward) at its
+    agreement, and one `predict(align_after_vt=True)` request with the
+    request's launch counts."""
+    from preworld_tpu_torch.data import frame_batch, synthetic_batch, to_device
+    from preworld_tpu_torch.models import PreWorld, PreWorldConfig
+    from preworld_tpu_torch.ops import _cuda
+    from preworld_tpu_torch.tools import verify_streaming
+    from preworld_tpu_torch.utils import init_weights
+
+    cfg = PreWorldConfig(if_post_finetune=True, if_render=False,
+                         use_lss_depth_loss=False, dtype=torch.bfloat16)
+    model = PreWorld(cfg).eval()
+    init_weights(model, seed=0)
+    model.cuda()
+    batch = to_device(synthetic_batch(cfg, 1, seed=0), "cuda")
+    frames = {t: frame_batch(batch, t) for t in set(STREAMING_FRAMES)}
+    sx, sy, sz = (int(v) for v in cfg.grid.size)
+
+    def check_occ(occ, what):
+        if occ.shape != (1, sx, sy, sz) or occ.dtype != torch.int32:
+            raise AssertionError(f"{what}: semantic_occ {occ.dtype} "
+                                 f"{tuple(occ.shape)}")
+        lo, hi = int(occ.min()), int(occ.max())
+        if lo < 0 or hi > cfg.num_classes - 1:
+            raise AssertionError(f"{what}: classes in [{lo}, {hi}]")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cache = model.init_sequential_cache(frames[2])
+    ms, per_step = [], []
+    for t in STREAMING_FRAMES:
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        out, cache = model.predict_sequential(frames[t], cache)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(dict(_cuda.launches))
+        check_occ(out["semantic_occ"], "streaming-flagship")
+    peak = torch.cuda.max_memory_allocated()
+    for got in per_step:
+        if got != STREAMING_PER_STEP:
+            raise AssertionError(f"streaming-flagship: launches per step "
+                                 f"{got}, expected {STREAMING_PER_STEP}")
+    if not torch.isfinite(cache["bev_feat"]).all():
+        raise AssertionError("streaming-flagship: non-finite cached feature")
+    cache_bytes = {k: v.numel() * v.element_size() for k, v in cache.items()}
+    profile = profile_call(
+        lambda: model.predict_sequential(frames[0], cache), top=25)
+
+    const = to_device(verify_streaming.constant_pose(
+        synthetic_batch(cfg, 1, seed=0)), "cuda")
+    agreement = verify_streaming.streaming_agreement(model, const)
+    if agreement < verify_streaming.AGREEMENT:
+        raise AssertionError(f"streaming-flagship: agreement {agreement} "
+                             f"against the full forward, below "
+                             f"{verify_streaming.AGREEMENT}")
+    del const
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    aavt = model.predict(batch, align_after_vt=True)
+    torch.cuda.synchronize()
+    aavt_ms = (time.perf_counter() - t0) * 1e3
+    aavt_launches = dict(_cuda.launches)
+    check_occ(aavt["semantic_occ"], "streaming-flagship align_after_vt")
+    if aavt_launches != EXPECTED_PER_REQUEST:
+        raise AssertionError(f"streaming-flagship: align_after_vt launches "
+                             f"{aavt_launches}, expected "
+                             f"{EXPECTED_PER_REQUEST}")
+    return {"step_ms": ms, "peak_bytes": peak,
+            "launches_per_step": {k: v for k, v in per_step[0].items() if v},
+            "cache_bytes": cache_bytes,
+            "cache_bytes_total": sum(cache_bytes.values()),
+            "agreement_vs_full": agreement,
+            "aavt_request_ms": aavt_ms,
+            "aavt_occ_classes": sorted(
+                torch.unique(aavt["semantic_occ"]).tolist()),
+            "profile": profile}
+
+
+def run_bench_entry():
+    """`python3 -m preworld_tpu_torch.tools.bench` in a process of its own:
+    exit 0, a last line with BENCH_KEYS, every time finite and positive, and
+    the launch counts of a request and of a streaming step. Returns that
+    line's object."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run([sys.executable, "-m", "preworld_tpu_torch.tools.bench"],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=900)
+    if run.returncode != 0:
+        raise AssertionError(f"bench-entry: exit {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    line = run.stdout.strip().splitlines()[-1]
+    print(line, flush=True)
+    out = json.loads(line)
+    missing = [k for k in BENCH_KEYS if k not in out]
+    bad = [k for k in BENCH_TIMES if k in out
+           and not (math.isfinite(out[k]) and out[k] > 0)]
+    if missing or bad or out["metric"] != "6cam_occ_inference_fps":
+        raise AssertionError(f"bench-entry: keys missing {missing}, times "
+                             f"not finite and positive {bad}: {out}")
+    for key, want in (("launches_per_request", EXPECTED_PER_REQUEST),
+                      ("launches_per_streaming_step", STREAMING_PER_STEP)):
+        if out[key] != {k: v for k, v in want.items() if v}:
+            raise AssertionError(f"bench-entry: {key} {out[key]}")
+    return out
 
 
 def profile_call(fn, top: int = 60) -> dict:
@@ -1515,6 +1721,7 @@ def check_train_reference(name="train-reference", density_bias=None, **over):
     bias."""
     from preworld_tpu_torch.data import synthetic_batch
     from preworld_tpu_torch.models import PreWorld
+    from preworld_tpu_torch.utils import init_weights
 
     cfg = reference_config(**dict(dict(num_cams=6, if_render=False,
                                        use_lss_depth_loss=False), **over))
@@ -1591,7 +1798,7 @@ def run_train_flagship(
         make_optimizer,
         make_train_step,
     )
-    from preworld_tpu_torch.utils import Config
+    from preworld_tpu_torch.utils import Config, init_weights
 
     conf = Config.fromfile(config)
     model = build_model(conf)
@@ -1689,6 +1896,7 @@ def run_swin_routes():
     from preworld_tpu_torch.models import PreWorldConfig
     from preworld_tpu_torch.models.swin import SwinTransformer
     from preworld_tpu_torch.ops import _cuda
+    from preworld_tpu_torch.utils import init_weights
 
     size = PreWorldConfig().input_size
     block = SwinTransformer(size)
@@ -1753,7 +1961,7 @@ def run_swint_flagship():
         make_optimizer,
         make_train_step,
     )
-    from preworld_tpu_torch.utils import Config
+    from preworld_tpu_torch.utils import Config, init_weights
 
     conf = Config.fromfile("configs/preworld/preworld_7frame_finetune.py")
     conf["model"]["swin"] = dict(SWINT)
@@ -1980,6 +2188,7 @@ def main() -> int:
             ok = (r["n_bad"] == 0 and r.get("bit_identical", True)
                   and r.get("pad_decoy_n_bad", 1) > 0
                   and r.get("starts_exact", True)
+                  and r.get("all_empty", True)
                   and all(r.get("edge_cases", {}).values()))
             if not ok:
                 failures.append(f"kernel {label} {r['shape']}")
@@ -2045,7 +2254,12 @@ def main() -> int:
 
     runs = {}
     for name, fn in (("reference", check_reference),
-                     ("flagship", run_flagship)):
+                     ("flagship", run_flagship),
+                     ("streaming-reference", check_streaming_reference),
+                     ("aavt-reference",
+                      lambda: check_reference(align_after_vt=True)),
+                     ("bevstereo-reference", check_bevstereo_reference),
+                     ("streaming-flagship", run_streaming_flagship)):
         runs[name] = phase(name, fn)
         if runs[name] is not None:
             status(name, "ok " + json.dumps(runs[name]))
@@ -2121,7 +2335,8 @@ def main() -> int:
                          "configs/preworld/preworld_7frame_pretrain.py",
                          PRETRAIN_ZERO_GRAD_PREFIXES, 38400, PRETRAIN_LOSSES,
                          "pretrain-flagship")),
-                     ("bench-parts", run_bench_parts)):
+                     ("bench-parts", run_bench_parts),
+                     ("bench-entry", run_bench_entry)):
         runs[name] = phase(name, fn)
         if runs[name] is not None:
             status(name, "ok " + json.dumps(runs[name]))

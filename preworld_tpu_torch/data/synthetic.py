@@ -117,6 +117,18 @@ def synthetic_batch(cfg: PreWorldConfig, batch_size: int = 1,
     return batch
 
 
+FRAME_KEYS = ("imgs", "sensor2egos", "ego2globals", "intrins", "post_rots",
+              "post_trans")
+
+
+def frame_batch(batch, t: int):
+    """Frame `t` of a multi-frame batch (numpy arrays or tensors), as one
+    streaming step takes it: the frame axis dropped, `bda` kept."""
+    out = {k: batch[k][:, t] for k in FRAME_KEYS}
+    out["bda"] = batch["bda"]
+    return out
+
+
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """numpy batch -> torch tensors on `device`."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)

@@ -1,4 +1,6 @@
+from .bevstereo_occ import BEVStereoOCC
 from .preworld import PreWorld, PreWorldConfig, TinyBackbone
 from .swin import SwinTransformer
 
-__all__ = ["PreWorld", "PreWorldConfig", "SwinTransformer", "TinyBackbone"]
+__all__ = ["BEVStereoOCC", "PreWorld", "PreWorldConfig", "SwinTransformer",
+           "TinyBackbone"]

@@ -1,12 +1,14 @@
 """PreWorld: the occupancy world model, inference and both train stages.
 
 Counterpart of `preworld_tpu/models/preworld.py`: `PreWorldConfig`,
-`TinyBackbone`, and `PreWorld.extract_voxel_feat` / `predict` /
-`predict_attributes` / `occupancy_logits` / `loss` (the 3-frame stereo loop
-with `align_after_vt=False`). `loss` covers the finetune stage's four voxel
-losses (`if_post_finetune`), the pretrain stage's render losses
-(`if_render`, `models/nerf_head.py`) and its LSS depth loss
-(`use_lss_depth_loss`); streaming and `align_after_vt` are not ported yet.
+`TinyBackbone`, and `PreWorld.extract_voxel_feat` / `predict` (the 3-frame
+stereo loop, with the reference's test-time `align_after_vt` as an option)
+/ `predict_attributes` / `occupancy_logits` / `loss`, and streaming
+inference, `init_sequential_cache` / `predict_sequential` (one new frame a
+step, the previous voxel feature ego-aligned from a cache). `loss` covers
+the finetune stage's four voxel losses (`if_post_finetune`), the pretrain
+stage's render losses (`if_render`, `models/nerf_head.py`) and its LSS
+depth loss (`use_lss_depth_loss`).
 
 Batch layout (torch tensors on one device, channel-last):
   imgs (B, T, N, H, W, 3); sensor2egos, ego2globals (B, T, N, 4, 4);
@@ -44,7 +46,11 @@ from ..geometry.frustum import (
     frustum_to_lidar,
     voxel_indices,
 )
-from ..geometry.transforms import curr2adjsensor_chain, sensor2keyego_chain
+from ..geometry.transforms import (
+    curr2adjsensor_chain,
+    invert_rigid,
+    sensor2keyego_chain,
+)
 from ..losses.voxel import (
     ce_ssc_loss,
     distance_weighted_focal_loss,
@@ -59,6 +65,7 @@ from .nerf_head import NerfHeadConfig, nerf_head_losses
 from .occ_head import OccHead
 from .resnet import CustomResNet3D
 from .swin import SwinTransformer
+from .temporal_align import shift_voxel_feature
 from ..ops.cost_volume_pallas import plane_sweep_supported
 from .view_transformer import (
     LSSViewTransformer,
@@ -229,13 +236,18 @@ class PreWorld(nn.Module):
 
     def extract_voxel_feat(self, batch: Dict[str, torch.Tensor],
                            train: bool = False,
-                           generator: Optional[torch.Generator] = None):
+                           generator: Optional[torch.Generator] = None,
+                           align_after_vt: bool = False):
         """3-frame stereo loop + BEV encoder -> voxel feats (B, X, Y, Z,
         out_dim) f32 and key-frame depth (B, N, D, hf, wf) f32.
 
         train: draw stochastic-depth and dropout masks from `generator` (a
         host generator, required) and keep gradients for the key frame only.
         BatchNorm follows the module's train / eval mode.
+        align_after_vt: the reference's test-time protocol: pool the
+        adjacent frame into its own ego, then warp its voxel feature to the
+        key ego (`shift_voxel_feature`); by default it is pooled into the
+        key ego directly.
         """
         c = self.cfg
         imgs = batch["imgs"].to(c.dtype)
@@ -263,26 +275,35 @@ class PreWorld(nn.Module):
                     stereo_feat_prev = self._backbone(x, True, gen)[0]
                 continue
             grads = contextlib.nullcontext() if fid == 0 else torch.no_grad()
+            own_ego = align_after_vt and fid != 0
             with grads:
                 voxel, depth, stereo_feat = self._frame(
                     batch, fid, frame_imgs, s2keyego, curr2adj,
-                    stereo_feat_prev, gen)
+                    stereo_feat_prev, gen, own_ego)
+                if own_ego:
+                    voxel = shift_voxel_feature(
+                        voxel.float(), s2keyego[:, 0], s2keyego[:, fid],
+                        batch["bda"].float(), c.grid).to(voxel.dtype)
             if fid == 0:
                 depth_key = depth
             bev_feats.append(voxel)
             stereo_feat_prev = stereo_feat
-        x = torch.cat(bev_feats, dim=-1)  # [adj, key]
+        return self._bev_encode(bev_feats), depth_key.float()
+
+    def _bev_encode(self, bev_feats):
+        """[adjacent, key] voxel feats (B, Z, Y, X, C) -> BEV encoder and
+        final_conv -> (B, X, Y, Z, out_dim) f32."""
+        x = torch.cat(bev_feats, dim=-1)
         x = self.bev_neck(self._segment(self.bev_backbone, x))
         x = self.final_conv(x.float())
-        # (B, Z, Y, X, C) -> (B, X, Y, Z, C)
-        voxel_feats = x.permute(0, 3, 2, 1, 4)
-        return voxel_feats, depth_key.float()
+        return x.permute(0, 3, 2, 1, 4)
 
     def _frame(self, batch, fid, frame_imgs, s2keyego, curr2adj,
-               stereo_feat_prev, gen):
+               stereo_feat_prev, gen, own_ego=False):
         """One temporal frame: image encoder, stereo cost volume, view
         transformer and pre-process net -> (voxel feat, depth, stage-0
-        stereo feat)."""
+        stereo feat). own_ego: pool into the frame's own ego instead of the
+        key ego (the cost volume and the mlp input keep the key pose)."""
         c = self.cfg
         B, N = frame_imgs.shape[:2]
         cams = {
@@ -308,10 +329,14 @@ class PreWorld(nn.Module):
                      "curr_feat": stereo_feat,
                      "k2s_sensor": curr2adj[:, fid]},
                     c.input_size, self.view_transformer.cost_volume_bias)
+            s2pool = cams["sensor2keyego"]
+            if own_ego:
+                s2pool = _own_ego(batch["sensor2egos"][:, fid],
+                                  batch["ego2globals"][:, fid])
             pool_vox = voxel_indices(
-                frustum_to_lidar(self.pool_frustum, cams["sensor2keyego"],
-                                 cams["intrin"], cams["post_rot"],
-                                 cams["post_tran"], cams["bda"]),
+                frustum_to_lidar(self.pool_frustum, s2pool, cams["intrin"],
+                                 cams["post_rot"], cams["post_tran"],
+                                 cams["bda"]),
                 c.grid)
         drop = self._aspp_dropout(B, N, gen)
         if drop is not None:
@@ -370,11 +395,10 @@ class PreWorld(nn.Module):
                 c.grid, weight=c.depth_loss_weight)
         return losses
 
-    @torch.no_grad()
-    def predict(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """{'semantic_occ', 'geo_occ'}: (B, X, Y, Z) int32 in [0, 17]."""
+    def _occupancy(self, voxel_feats):
+        """The inference head: (semantic_occ, geo_occ), (B, X, Y, Z) int32
+        in [0, 17]."""
         c = self.cfg
-        voxel_feats, _ = self.extract_voxel_feat(batch)
         empty = c.num_classes - 1
         if not c.if_post_finetune:
             density, semantic, _ = self.predict_attributes(voxel_feats)
@@ -384,5 +408,109 @@ class PreWorld(nn.Module):
         else:
             occ = self.occupancy_logits(voxel_feats).argmax(-1)
             geo = torch.where(occ != c.empty_idx, 0, empty)
-        return {"semantic_occ": occ.to(torch.int32),
-                "geo_occ": geo.to(torch.int32)}
+        return occ.to(torch.int32), geo.to(torch.int32)
+
+    @torch.no_grad()
+    def predict(self, batch: Dict[str, torch.Tensor],
+                align_after_vt: bool = False) -> Dict[str, torch.Tensor]:
+        """{'semantic_occ', 'geo_occ'}: (B, X, Y, Z) int32 in [0, 17].
+        align_after_vt: see `extract_voxel_feat`."""
+        voxel_feats, _ = self.extract_voxel_feat(
+            batch, align_after_vt=align_after_vt)
+        occ, geo = self._occupancy(voxel_feats)
+        return {"semantic_occ": occ, "geo_occ": geo}
+
+    # ------------------------------------------------ streaming inference
+
+    @torch.no_grad()
+    def init_sequential_cache(self, batch: Dict[str, torch.Tensor]
+                              ) -> Dict[str, torch.Tensor]:
+        """The cache before the first streaming step, on the batch's
+        device: zero `bev_feat` (B, Z, Y, X, num_trans_channels) and
+        `stereo_feat` (B*N, H/4, W/4, C0) in `cfg.dtype`, the frame's poses,
+        and `pool_vox`, the pooling's voxel ids, computed once from this
+        frame and reused every step (the rig is fixed and sensor2keyego is
+        ego-relative). batch: one frame, imgs (B, N, H, W, 3) and the
+        camera tensors without the frame axis."""
+        c = self.cfg
+        B, N = batch["imgs"].shape[:2]
+        dev = batch["imgs"].device
+        sx, sy, sz = (int(v) for v in c.grid.size)
+        down = self.view_transformer.cv_downsample
+        c0 = c.swin_embed_dims if c.backbone == "swin" else 16
+        pool_vox = voxel_indices(
+            frustum_to_lidar(self.pool_frustum,
+                             _own_ego(batch["sensor2egos"],
+                                      batch["ego2globals"]),
+                             batch["intrins"], batch["post_rots"],
+                             batch["post_trans"], batch["bda"]),
+            c.grid)
+        return {
+            "bev_feat": torch.zeros((B, sz, sy, sx, c.num_trans_channels),
+                                    dtype=c.dtype, device=dev),
+            "stereo_feat": torch.zeros(
+                (B * N, c.input_size[0] // down, c.input_size[1] // down, c0),
+                dtype=c.dtype, device=dev),
+            "sensor2egos": batch["sensor2egos"],
+            "ego2globals": batch["ego2globals"],
+            "pool_vox": pool_vox,
+        }
+
+    @torch.no_grad()
+    def sequential_voxel_feat(self, batch: Dict[str, torch.Tensor],
+                              cache: Dict[str, torch.Tensor]):
+        """One streaming step up to the heads -> (voxel feats (B, X, Y, Z,
+        out_dim) f32, new cache). Encodes only the new frame; its stereo
+        reference is the cached stage-0 feature (zeros on the first step,
+        which still runs the cost volume), its pooling takes the cached
+        `pool_vox`, and the cached voxel feature, warped from the previous
+        key ego into this one, is its adjacent frame. The new cache holds
+        this step's voxel feature before any warp."""
+        c = self.cfg
+        imgs = batch["imgs"].to(c.dtype)
+        if self.stereo_on_plane_sweep:
+            check_planar_post_aug(batch["post_rots"])
+        s2e, e2g = batch["sensor2egos"], batch["ego2globals"]
+        key_inv = invert_rigid(e2g[:, 0:1])
+        s2keyego = (key_inv @ e2g @ s2e).float()
+        prev_pose = cache["ego2globals"] @ cache["sensor2egos"]
+        cams = {
+            "intrin": batch["intrins"], "post_rot": batch["post_rots"],
+            "post_tran": batch["post_trans"], "bda": batch["bda"],
+            "mlp_input": get_mlp_input(
+                s2keyego, e2g, batch["intrins"], batch["post_rots"],
+                batch["post_trans"], batch["bda"]),
+        }
+        feat, stereo_feat = self._encode_image(imgs)
+        cost_volume = compute_stereo_cost_volume(
+            self.cv_frustum, cams,
+            {"prev_feat": cache["stereo_feat"], "curr_feat": stereo_feat,
+             # current sensor -> previous sensor
+             "k2s_sensor": (invert_rigid(prev_pose) @ e2g @ s2e).float()},
+            c.input_size, self.view_transformer.cost_volume_bias)
+        voxel, _ = self.view_transformer(feat, cams, cost_volume,
+                                         cache["pool_vox"])
+        voxel = self.pre_process(voxel)[0]
+        shifted_prev = shift_voxel_feature(
+            cache["bev_feat"].float(), s2keyego,
+            (key_inv @ prev_pose).float(), batch["bda"].float(),
+            c.grid).to(voxel.dtype)
+        new_cache = {"bev_feat": voxel, "stereo_feat": stereo_feat,
+                     "sensor2egos": s2e, "ego2globals": e2g,
+                     "pool_vox": cache["pool_vox"]}
+        return self._bev_encode([shifted_prev, voxel]), new_cache
+
+    @torch.no_grad()
+    def predict_sequential(self, batch: Dict[str, torch.Tensor],
+                           cache: Dict[str, torch.Tensor]):
+        """One streaming step -> ({'semantic_occ'}, new cache); see
+        `sequential_voxel_feat`."""
+        voxel_feats, new_cache = self.sequential_voxel_feat(batch, cache)
+        return {"semantic_occ": self._occupancy(voxel_feats)[0]}, new_cache
+
+
+def _own_ego(sensor2egos, ego2globals):
+    """One frame's (B, N, 4, 4) poses -> each sensor in that frame's own
+    key ego (camera 0's ego), f32."""
+    return (invert_rigid(ego2globals[:, 0:1]) @ ego2globals
+            @ sensor2egos).float()

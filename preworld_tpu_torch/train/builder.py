@@ -3,9 +3,10 @@
 Counterpart of `preworld_tpu/train/builder.py::build_model`: the same config
 tree (a `utils.config.Config` read from `configs/`) becomes the port's
 `PreWorldConfig`, with the JAX package's defaults for every missing key,
-the render head's `nerf_head` dict included (`build_nerf_config`). Only
-`type="PreWorld"` is ported. The model is built on the card unless the
-caller asks for another device.
+the render head's `nerf_head` dict included (`build_nerf_config`).
+`type="PreWorld"` builds `PreWorld` and `type="BEVStereo4DOCC"` the
+baseline `BEVStereoOCC`; `PreWorld4DTraj` is not ported yet. The model is
+built on the card unless the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 
 from ..geometry.frustum import GridConfig
 from ..models.nerf_head import NerfHeadConfig
+from ..models.bevstereo_occ import BEVStereoOCC
 from ..models.preworld import PreWorld, PreWorldConfig
 from ..ops.render import RaySamplingSpec
 
@@ -59,11 +61,15 @@ def build_model(cfg, device="cuda") -> PreWorld:
     model's parameters and buffers land on `device` (the card by default;
     pass "cpu" for the CPU)."""
     m = cfg["model"]
-    if m.get("type", "PreWorld") != "PreWorld":
-        raise NotImplementedError(f"model type {m['type']!r} is not ported")
+    mtype = m.get("type", "PreWorld")
+    models = {"PreWorld": PreWorld, "BEVStereo4DOCC": BEVStereoOCC}
+    if mtype not in models:
+        raise NotImplementedError(
+            f"model type {mtype!r} is not ported; of the JAX package's "
+            "types only PreWorld4DTraj remains (ROADMAP P15b)")
     swin = m.get("swin", {})
     grid = build_grid_config(cfg["grid_config"])
-    return PreWorld(PreWorldConfig(
+    return models[mtype](PreWorldConfig(
         grid=grid,
         input_size=tuple(cfg["data_config"]["input_size"]),
         num_cams=int(cfg["data_config"]["Ncams"]),

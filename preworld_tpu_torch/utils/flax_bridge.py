@@ -10,6 +10,10 @@ The port's module and parameter names mirror the flax tree, so a flax leaf
   relative_position_bias_table      -> relative_position_bias_table
   batch_stats mean / var            -> running_mean / running_var
 
+A `BEVStereoOCC` tree maps the same way: its `predicter` MLP becomes
+`predicter.Dense_{0,1}.*`, and it holds none of PreWorld's heads (the flax
+module never builds them, nor does the port's).
+
 This is the inverse direction of `preworld_tpu/utils/torch_port.py`; a
 reference mmcv checkpoint reaches the port as `convert_full_model` (which
 gives flax trees of numpy arrays) followed by `load_flax_params`. The port

@@ -201,12 +201,16 @@ def test_port_imports_without_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'preworld_tpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 35
+    names = set(out.stdout.split())
+    assert len(names) >= 40
+    assert {f"preworld_tpu_torch.{m}" for m in (
+        "models.temporal_align", "models.bevstereo_occ", "utils.weights",
+        "tools.bench", "tools.verify_streaming")} <= names
 
 
 def test_bench_parts_stages_run_on_the_cpu():
