@@ -131,6 +131,35 @@ fallback to the CPU or to a kernel's plain version:
              launches of a request (50 / 50 / 2 / 2) and of a streaming
              step (24 / 24 / 1 / 1).
 
+In a temporary directory the script deletes at its end:
+
+  data-flagship  writes a nuScenes tree in the bevdetv2 info layout at
+             nuScenes sizes (8 frames over 2 scenes, 6 cameras of 1600x900
+             JPEG, 200x200x16 labels.npz, lidar sweeps, sparse depth and
+             lidarseg GT of 4000 points an image) and builds one finetune
+             and one pretrain train sample from it (38400 rays from the
+             ported ray builders): ms each, shapes, finite values.
+  train-loop-flagship  `build_model` of the finetune config on the card,
+             its dataset on the tree (batch 2, 4 loader threads):
+             `train_epochs` for 2 epochs of 2 iterations with a checkpoint
+             and an `evaluate_miou` of 3 eval-mode samples at batch 2 after
+             each epoch; then `maybe_resume` into a freshly built state,
+             which must hold every tensor of the saved one bit for bit, and
+             one more epoch. Gates: finite losses, the JAX loop's record
+             keys in metrics.jsonl, the launches of each step (K1b / K2b
+             24 each) and of each eval (50 / 50 / 2 / 2 a request), the
+             eval's count 3. Prints s per iteration, the loader's wait,
+             peak bytes, checkpoint bytes, save / restore s, eval s per
+             sample and a profiled iteration's device busy share.
+  eval-reference  `evaluate_miou` of a stepped state on the reference
+             config on the card, 5 samples at batch 2: exactly the
+             histogram of a second model that loads the EMA, predicting
+             the same batches; the parameters, buffers, gradients and
+             moments bit-identical afterwards, each module in its mode.
+  pretrain-loop-flagship  the pretrain config's model for one iteration at
+             batch 1 from the tree (38400 rays): the six losses finite,
+             K1b / K2b 24 launches each.
+
 Then one JSON line of per-kernel results (launches: K1-K4 from the flagship
 predict run, K1b/K2b from the train-flagship run, K5/K5b from the
 swint-flagship request and step, K6/K6b from the swin-routes run, K7 from
@@ -145,10 +174,12 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 
@@ -1106,7 +1137,7 @@ def flagship_geometry(cfg, device, harsh=False):
         sensor2keyego_chain,
     )
 
-    b = synthetic_batch(cfg, 1, seed=0)
+    b = synthetic_batch(cfg, 1, seed=0, with_labels=False)
     b.pop("imgs")
     if harsh:
         for t in range(b["ego2globals"].shape[1]):
@@ -1421,7 +1452,7 @@ def check_reference(routes=None, align_after_vt=False, **over):
         raise AssertionError(f"reference: routes "
                              f"{ref.img_backbone.stage_routes}, expected "
                              f"{routes}")
-    batch = synthetic_batch(ref.cfg, 1, seed=7)
+    batch = synthetic_batch(ref.cfg, 1, seed=7, with_labels=False)
     want = run_heads(ref, to_device(batch, "cpu"), align_after_vt)
     got = run_heads(card, to_device(batch, "cuda"), align_after_vt)
     return card_vs_cpu("reference", got.float().cpu(), want)
@@ -1459,7 +1490,8 @@ def run_flagship():
     init_weights(model, seed=0)
     model.cuda()
     n_params = sum(p.numel() for p in model.parameters())
-    batches = [synthetic_batch(cfg, 1, seed=s) for s in range(REQUESTS)]
+    batches = [synthetic_batch(cfg, 1, seed=s, with_labels=False)
+               for s in range(REQUESTS)]
     sx, sy, sz = (int(v) for v in cfg.grid.size)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1508,7 +1540,7 @@ def check_streaming_reference():
     from preworld_tpu_torch.data import frame_batch, synthetic_batch, to_device
 
     ref, card = reference_pair(reference_config())
-    batch = synthetic_batch(ref.cfg, 1, seed=7)
+    batch = synthetic_batch(ref.cfg, 1, seed=7, with_labels=False)
     caches = {m: m.init_sequential_cache(to_device(frame_batch(batch, 2), d))
               for m, d in ((ref, "cpu"), (card, "cuda"))}
     res = []
@@ -1573,7 +1605,8 @@ def run_streaming_flagship():
     model = PreWorld(cfg).eval()
     init_weights(model, seed=0)
     model.cuda()
-    batch = to_device(synthetic_batch(cfg, 1, seed=0), "cuda")
+    batch = to_device(synthetic_batch(cfg, 1, seed=0, with_labels=False),
+                      "cuda")
     frames = {t: frame_batch(batch, t) for t in set(STREAMING_FRAMES)}
     sx, sy, sz = (int(v) for v in cfg.grid.size)
 
@@ -1609,7 +1642,7 @@ def run_streaming_flagship():
         lambda: model.predict_sequential(frames[0], cache), top=25)
 
     const = to_device(verify_streaming.constant_pose(
-        synthetic_batch(cfg, 1, seed=0)), "cuda")
+        synthetic_batch(cfg, 1, seed=0, with_labels=False)), "cuda")
     agreement = verify_streaming.streaming_agreement(model, const)
     if agreement < verify_streaming.AGREEMENT:
         raise AssertionError(f"streaming-flagship: agreement {agreement} "
@@ -1992,7 +2025,7 @@ def run_swint_flagship():
     torch.cuda.reset_peak_memory_stats()
     req_ms, req_launches = [], dict.fromkeys(KERNELS, 0)
     for seed in range(REQUESTS):
-        batch = synthetic_batch(cfg, 1, seed=seed)
+        batch = synthetic_batch(cfg, 1, seed=seed, with_labels=False)
         out, ms, launches = timed(
             lambda: model.predict(to_device(batch, "cuda")),
             SWINT_PER_REQUEST, f"request {seed}")
@@ -2004,7 +2037,7 @@ def run_swint_flagship():
         req_ms.append(ms)
         req_launches = {k: req_launches[k] + launches[k] for k in launches}
     req_peak = torch.cuda.max_memory_allocated()
-    batch = synthetic_batch(cfg, 1, seed=0)
+    batch = synthetic_batch(cfg, 1, seed=0, with_labels=False)
     req_profile = profile_call(lambda: model.predict(to_device(batch, "cuda")))
 
     state = create_train_state(model, make_optimizer(model.parameters()),
@@ -2066,6 +2099,557 @@ def run_bench_parts():
     return {"stages": rows, "launches": launches,
             "cumdist_mask_ms": cumdist_ms,
             "samples_per_ray": spec.num_samples}
+
+
+# ------------------------------------- data layer, train loop, evaluation
+
+FINETUNE_CONFIG = "configs/preworld/preworld_7frame_finetune.py"
+PRETRAIN_CONFIG = "configs/preworld/preworld_7frame_pretrain.py"
+# data-flagship: a nuScenes tree this script writes (bevdetv2 infos and the
+# reference's file formats) at nuScenes sizes: 8 key frames over 2 scenes,
+# 6 cameras of 1600x900 JPEG, 200x200x16 occupancy labels, lidar sweeps of
+# 34720 points, and sparse depth / lidarseg GT of 4000 points an image, so
+# that a pretrain sample's 7 frames x 6 cameras hold more than its 38400
+# rays
+TREE_FRAMES, TREE_SCENES = 8, 2
+TREE_SRC = (900, 1600)
+TREE_GT_POINTS = 4000
+TREE_LIDAR_POINTS = 34720
+TREE_CAM_YAWS = (55.0, 0.0, -55.0, -110.0, 180.0, 110.0)  # DEFAULT_CAMS
+TREE_PKL = "bevdetv2-nuscenes_infos_train.pkl"
+# train-loop-flagship: epochs x iterations with a checkpoint each epoch,
+# then one more epoch resumed from it; the eval after each epoch over
+# EVAL_SAMPLES eval-mode samples at batch EVAL_BATCH (the last one padded)
+LOOP_EPOCHS, LOOP_ITERS = 2, 2
+EVAL_SAMPLES, EVAL_BATCH = 3, 2
+# eval-reference: samples (at batch 2)
+EVAL_REF_SAMPLES = 5
+# the keys of each train record in metrics.jsonl, as the JAX loop writes
+# them (each loss of the step besides)
+RECORD_KEYS = {"epoch", "iter", "time_per_iter", "loss_total", "grad_norm"}
+
+
+def rotmat_to_quat(r) -> list:
+    """(w, x, y, z) of a 3x3 rotation (Shepperd's branches)."""
+    t = r[0, 0] + r[1, 1] + r[2, 2]
+    if t > 0:
+        s = 2.0 * math.sqrt(t + 1.0)
+        return [s / 4, (r[2, 1] - r[1, 2]) / s, (r[0, 2] - r[2, 0]) / s,
+                (r[1, 0] - r[0, 1]) / s]
+    i = max(range(3), key=lambda k: r[k, k])
+    j, k = (i + 1) % 3, (i + 2) % 3
+    s = 2.0 * math.sqrt(1.0 + r[i, i] - r[j, j] - r[k, k])
+    q = [0.0] * 4
+    q[0] = (r[k, j] - r[j, k]) / s
+    q[1 + i] = s / 4
+    q[1 + j] = (r[j, i] + r[i, j]) / s
+    q[1 + k] = (r[k, i] + r[i, k]) / s
+    return q
+
+
+def write_nuscenes_tree(root: str, grid_shape, seed: int = 0) -> str:
+    """Write the data-flagship tree under `root` (paths in the infos
+    relative to it, as `data_root` reads them), its occupancy labels of
+    `grid_shape`; returns the info pkl."""
+    import pickle
+
+    import numpy as np
+    from PIL import Image
+
+    from preworld_tpu_torch.data import DEFAULT_CAMS
+
+    rng = np.random.default_rng(seed)
+    H, W = TREE_SRC
+    intrin = np.array([[1266.4, 0.0, 816.3], [0.0, 1266.4, 491.5],
+                       [0.0, 0.0, 1.0]])
+    infos = []
+    per_scene = TREE_FRAMES // TREE_SCENES
+    for t in range(TREE_FRAMES):
+        scene, f = divmod(t, per_scene)
+        yaw = math.radians(2.0 * f + 30.0 * scene)
+        ego_rot = rotmat_to_quat(np.array(
+            [[math.cos(yaw), -math.sin(yaw), 0.0],
+             [math.sin(yaw), math.cos(yaw), 0.0], [0.0, 0.0, 1.0]]))
+        ego_tr = [600.0 + 200.0 * scene + 0.5 * f * math.cos(yaw),
+                  1600.0 + 0.5 * f * math.sin(yaw), 0.0]
+        token = f"tok{t:03d}"
+        occ = os.path.join("gts", f"scene-{scene:04d}", token)
+        os.makedirs(os.path.join(root, occ))
+        shape = tuple(grid_shape)
+        np.savez_compressed(
+            os.path.join(root, occ, "labels.npz"),
+            semantics=np.where(rng.uniform(size=shape) < 0.7, 17,
+                               rng.integers(0, 17, shape)).astype(np.uint8),
+            mask_lidar=(rng.uniform(size=shape) < 0.4).astype(np.uint8),
+            mask_camera=(rng.uniform(size=shape) < 0.6).astype(np.uint8))
+        pts = np.empty((TREE_LIDAR_POINTS, 5), np.float32)
+        pts[:, :2] = rng.uniform(-50.0, 50.0, (TREE_LIDAR_POINTS, 2))
+        pts[:, 2] = rng.uniform(-2.0, 4.0, TREE_LIDAR_POINTS)
+        pts[:, 3] = rng.uniform(0, 255, TREE_LIDAR_POINTS)
+        pts[:, 4] = rng.integers(0, 32, TREE_LIDAR_POINTS)
+        lidar = os.path.join("sweeps", f"{token}__LIDAR_TOP.pcd.bin")
+        os.makedirs(os.path.join(root, "sweeps"), exist_ok=True)
+        pts.tofile(os.path.join(root, lidar))
+        info = {"token": token, "scene_token": f"scene-{scene:04d}",
+                "scene_name": f"scene-{scene:04d}", "frame_idx": f,
+                "timestamp": 1_533_000_000_000_000 + 500_000 * t,
+                "lidar_path": lidar, "lidar2ego_rotation": [1.0, 0, 0, 0],
+                "lidar2ego_translation": [0.94, 0.0, 1.84],
+                "ego2global_rotation": ego_rot,
+                "ego2global_translation": ego_tr, "occ_path": occ,
+                "cams": {}}
+        for cam, a in zip(DEFAULT_CAMS, TREE_CAM_YAWS):
+            a = math.radians(a)
+            fwd = [math.cos(a), math.sin(a), 0.0]
+            right = [math.sin(a), -math.cos(a), 0.0]
+            rot = np.stack([right, [0.0, 0.0, -1.0], fwd], axis=1)
+            name = os.path.join("samples", cam, f"{token}__{cam}.jpg")
+            os.makedirs(os.path.join(root, "samples", cam), exist_ok=True)
+            small = rng.integers(0, 256, (H // 20, W // 20, 3), np.uint8)
+            Image.fromarray(small).resize((W, H), Image.BILINEAR).save(
+                os.path.join(root, name), quality=90)
+            info["cams"][cam] = {
+                "data_path": name, "cam_intrinsic": intrin,
+                "sensor2ego_rotation": rotmat_to_quat(rot),
+                "sensor2ego_translation": [fwd[0], 0.5 * fwd[1], 1.6],
+                "ego2global_rotation": ego_rot,
+                "ego2global_translation": ego_tr}
+            uv = np.stack([rng.integers(0, W, TREE_GT_POINTS),
+                           rng.integers(0, H, TREE_GT_POINTS)],
+                          1).astype(np.float32)
+            base = os.path.basename(name) + ".bin"
+            for sub, val in (
+                    ("depth_gt", rng.uniform(1.5, 50.0, TREE_GT_POINTS)),
+                    ("seg_gt", rng.integers(0, 17, TREE_GT_POINTS))):
+                os.makedirs(os.path.join(root, sub), exist_ok=True)
+                np.concatenate([uv, val[:, None]], 1).astype(
+                    np.float32).tofile(os.path.join(root, sub, base))
+        infos.append(info)
+    ann = os.path.join(root, TREE_PKL)
+    with open(ann, "wb") as fh:
+        pickle.dump({"infos": infos, "metadata": {"version": "v1.0-fake"}},
+                    fh)
+    return ann
+
+
+def tree_dataset(conf, root: str, is_train: bool):
+    """The config's train dataset on the tree (its pkl, data root and GT
+    paths in place of the config's)."""
+
+    from preworld_tpu_torch.data import NuScenesOccDataset
+
+    tr = conf["data"]["train"]
+    return NuScenesOccDataset(
+        ann_file=os.path.join(root, TREE_PKL),
+        data_config=conf["data_config"], grid_config=conf["grid_config"],
+        bda_aug_conf=conf.get("bda_aug_conf"), is_train=is_train,
+        use_rays=bool(tr.get("use_rays", False)),
+        aux_frames=tr.get("aux_frames", (-3, -2, -1, 1, 2, 3)),
+        max_ray_nums=int(tr.get("max_ray_nums", 38400)),
+        depth_gt_path=os.path.join(root, "depth_gt"),
+        semantic_gt_path=os.path.join(root, "seg_gt"), data_root=root)
+
+
+def run_data_flagship(root: str) -> dict:
+    """Write the tree, then build one finetune and one pretrain train
+    sample (rays from the ported builders) and check their shapes."""
+
+    import numpy as np
+
+    from preworld_tpu_torch.geometry.rays import RAY_DIM
+    from preworld_tpu_torch.train.builder import build_grid_config
+    from preworld_tpu_torch.utils import Config
+
+    conf = Config.fromfile(FINETUNE_CONFIG)
+    grid = tuple(int(v) for v in build_grid_config(conf["grid_config"]).size)
+    t0 = time.perf_counter()
+    write_nuscenes_tree(root, grid)
+    out = {"tree_write_s": time.perf_counter() - t0,
+           "tree_bytes": sum(os.path.getsize(os.path.join(d, f))
+                             for d, _, fs in os.walk(root) for f in fs)}
+    H, W = conf["data_config"]["input_size"]
+    n = int(conf["data_config"]["Ncams"])
+    want = {"imgs": (3, n, H, W, 3), "sensor2egos": (3, n, 4, 4),
+            "voxel_semantics": grid, "mask_camera": grid,
+            "gt_depth": (n, H, W), "bda": (3, 3)}
+    for name, config in (("finetune", FINETUNE_CONFIG),
+                         ("pretrain", PRETRAIN_CONFIG)):
+        ds = tree_dataset(Config.fromfile(config), root, is_train=True)
+        t0 = time.perf_counter()
+        s = ds[TREE_FRAMES // TREE_SCENES - 1]
+        out[f"{name}_sample_ms"] = (time.perf_counter() - t0) * 1e3
+        shapes = {k: tuple(v.shape) for k, v in s.items()}
+        out[f"{name}_shapes"] = shapes
+        need = dict(want, rays=(ds.max_ray_nums, RAY_DIM)) if ds.use_rays \
+            else want
+        bad = {k: shapes.get(k) for k, v in need.items()
+               if shapes.get(k) != v}
+        if bad or not all(np.isfinite(v).all() for v in s.values()
+                          if v.dtype.kind == "f"):
+            raise AssertionError(f"data-flagship {name}: shapes {bad} or "
+                                 f"non-finite values: {shapes}")
+        out[f"{name}_lidar_depth_share"] = float((s["gt_depth"] > 0).mean())
+    return out
+
+
+class TimedLoader:
+    """A loader that records how long each `next` blocks its caller, per
+    epoch."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.waits = []
+
+    def set_epoch(self, epoch: int) -> None:
+        self.loader.set_epoch(epoch)
+        self.waits.append([])
+
+    def __iter__(self):
+        it = iter(self.loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.waits[-1].append(time.perf_counter() - t0)
+                yield batch
+        finally:
+            it.close()
+
+
+def counted(step, log: list):
+    """`step` with the launch counts of each call appended to `log` (the
+    counts set to 0 just before the call)."""
+    from preworld_tpu_torch.ops import _cuda
+
+    def run(state, batch, generator):
+        _cuda.reset_launches()
+        out = step(state, batch, generator)
+        log.append(dict(_cuda.launches))
+        return out
+
+    return run
+
+
+def config_state(conf, seed: int = 0):
+    """`build_model(conf)` on the card with seeded weights, and its train
+    state with the config's optimizer and EMA, as the JAX train CLI sets
+    them."""
+    from preworld_tpu_torch.train import (
+        build_model,
+        create_train_state,
+        make_optimizer,
+    )
+    from preworld_tpu_torch.utils import init_weights
+
+    model = build_model(conf)
+    init_weights(model, seed=seed, fan_in=True)
+    opt, lr = conf.get("optimizer", {}), conf.get("lr_config", {})
+    clip = conf.get("optimizer_config", {}).get("grad_clip", {})
+    return create_train_state(model, make_optimizer(
+        model.parameters(), base_lr=float(opt.get("lr", 1e-4)),
+        weight_decay=float(opt.get("weight_decay", 1e-2)),
+        clip_norm=float(clip.get("max_norm", 5)),
+        warmup_iters=int(lr.get("warmup_iters", 200))),
+        int(conf["ema"]["init_updates"]))
+
+
+def state_mismatches(a, b) -> list:
+    """Names of what two train states do not hold bit-equal: model state,
+    AdamW moments, EMA, the optimizer's count, ema_updates, step."""
+    sb = b.model.state_dict()
+    bad = [k for k, v in a.model.state_dict().items()
+           if not torch.equal(v, sb[k])]
+    pb = dict(b.model.named_parameters())
+    for n, p in a.model.named_parameters():
+        ma, mb = a.optimizer.state[p], b.optimizer.state[pb[n]]
+        bad += [f"{k}.{n}" for k in ("mu", "nu")
+                if k not in mb or not torch.equal(ma[k], mb[k])]
+        if not torch.equal(a.ema_params[n], b.ema_params[n]):
+            bad.append(f"ema.{n}")
+    bad += [k for k in ("step", "ema_updates")
+            if getattr(a, k) != getattr(b, k)]
+    if a.optimizer.count != b.optimizer.count:
+        bad.append("count")
+    return bad
+
+
+def read_records(work: str, what: str) -> tuple:
+    """(train records, eval records) of work/metrics.jsonl; each train
+    record must hold the JAX loop's keys and finite numbers."""
+    with open(os.path.join(work, "metrics.jsonl")) as fh:
+        recs = [json.loads(line) for line in fh]
+    train = [r for r in recs if "eval" not in r]
+    evals = [r for r in recs if "eval" in r]
+    for r in train:
+        if not RECORD_KEYS <= set(r) or not all(
+                math.isfinite(v) for v in r.values()):
+            raise AssertionError(f"{what}: train record {r}")
+    return train, evals
+
+
+def run_train_loop_flagship(root: str, tmp: str) -> dict:
+    """The finetune config's model trained by `train_epochs` from the tree:
+    LOOP_EPOCHS epochs of LOOP_ITERS iterations at the config's batch, a
+    checkpoint and an `evaluate_miou` each epoch; then `maybe_resume` into
+    a freshly built state (bit-equal to the saved one) and one more
+    epoch."""
+
+    from preworld_tpu_torch.data import DataLoader
+    from preworld_tpu_torch.ops import _cuda
+    from preworld_tpu_torch.train import (
+        evaluate_miou,
+        make_train_step,
+        maybe_resume,
+        save_checkpoint,
+        train_epochs,
+    )
+    from preworld_tpu_torch.train.loop import batch_to
+    from preworld_tpu_torch.utils import Config
+
+    conf = Config.fromfile(FINETUNE_CONFIG)
+    data = conf["data"]
+    state = config_state(conf)
+    expected = EXPECTED_PER_STEP_REMAT if state.model.cfg.remat \
+        else EXPECTED_PER_STEP
+    loader = TimedLoader(DataLoader(
+        tree_dataset(conf, root, is_train=True),
+        batch_size=int(data["samples_per_gpu"]),
+        num_workers=int(data["workers_per_gpu"]) * 2, seed=0))
+    eval_ds = tree_dataset(conf, root, is_train=False)
+    eval_samples = [eval_ds[i] for i in range(EVAL_SAMPLES)]
+    evals, steps = [], []
+
+    def eval_fn(state):
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        res = evaluate_miou(state.model, state, iter(eval_samples),
+                            batch_size=EVAL_BATCH)
+        evals.append({"s_per_sample": (time.perf_counter() - t0)
+                      / EVAL_SAMPLES, "launches": dict(_cuda.launches)})
+        return res
+
+    step = counted(make_train_step(conf["ema"]["decay"]), steps)
+    work = os.path.join(tmp, "finetune_run")
+    gen = torch.Generator().manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train_epochs(state, step, loader, LOOP_EPOCHS, work,
+                         log_interval=1, generator=gen, eval_fn=eval_fn,
+                         max_iters_per_epoch=LOOP_ITERS)
+    loop_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    ckpt = os.path.join(work, "checkpoints")
+    files = sorted(os.listdir(ckpt), key=lambda f: int(f.split(".")[0]))
+    want_files = [f"{LOOP_ITERS * (e + 1)}.pt" for e in range(LOOP_EPOCHS)]
+    if files != want_files:
+        raise AssertionError(f"train-loop-flagship: checkpoints {files}")
+    ckpt_bytes = os.path.getsize(os.path.join(ckpt, want_files[-1]))
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, state, state.step, max_to_keep=2)
+    save_s = time.perf_counter() - t0
+
+    fresh = config_state(conf, seed=1)
+    t0 = time.perf_counter()
+    fresh, resumed = maybe_resume(fresh, work)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    bad = state_mismatches(state, fresh)
+    if not resumed or bad:
+        raise AssertionError(f"train-loop-flagship: resumed {resumed}, "
+                             f"not bit-equal: {bad[:8]} ({len(bad)})")
+    del state
+    torch.cuda.empty_cache()
+    for f in want_files[:-1]:  # at most 2 checkpoints on disk
+        os.remove(os.path.join(ckpt, f))
+    fresh = train_epochs(fresh, step, loader, LOOP_EPOCHS + 1, work,
+                         log_interval=1, generator=gen, eval_fn=eval_fn,
+                         start_epoch=LOOP_EPOCHS,
+                         max_iters_per_epoch=LOOP_ITERS)
+    train, eval_recs = read_records(work, "train-loop-flagship")
+    batch = next(iter(loader.loader))
+    profile = profile_call(lambda: step(fresh, batch_to(batch, "cuda"), gen),
+                           top=8)
+    per_eval = {k: v * math.ceil(EVAL_SAMPLES / EVAL_BATCH)
+                for k, v in EXPECTED_PER_REQUEST.items()}
+    faults = [f"step {i} launches {s}" for i, s in enumerate(steps)
+              if s != expected]
+    faults += [f"eval launches {e['launches']}" for e in evals
+               if e["launches"] != per_eval]
+    faults += [f"eval {r}" for r in eval_recs
+               if r["eval"]["count"] != EVAL_SAMPLES]
+    if len(train) != LOOP_ITERS * (LOOP_EPOCHS + 1):
+        faults.append(f"{len(train)} train records")
+    if len(eval_recs) != LOOP_EPOCHS + 1:
+        faults.append(f"{len(eval_recs)} eval records")
+    if fresh.step != LOOP_ITERS * (LOOP_EPOCHS + 1) + 1:
+        faults.append(f"step {fresh.step}")
+    if faults:
+        raise AssertionError(f"train-loop-flagship: {faults}")
+    return {
+        "batch": int(data["samples_per_gpu"]),
+        "loader_threads": loader.loader.num_workers,
+        "remat": fresh.model.cfg.remat,
+        "s_per_iter": [r["time_per_iter"] for r in train],
+        "loader_wait_s_first": [w[0] for w in loader.waits if w],
+        "loader_wait_s_later": [x for w in loader.waits
+                                for x in w[1:LOOP_ITERS]],
+        "loop_s_first_epochs": loop_s,
+        "peak_bytes": peak,
+        "checkpoint_bytes": ckpt_bytes,
+        "param_bytes": sum(p.numel() * p.element_size()
+                           for p in fresh.model.parameters()),
+        "save_s": save_s, "restore_s": restore_s,
+        "eval_s_per_sample": [e["s_per_sample"] for e in evals],
+        "eval_miou": [r["eval"]["mIoU"] for r in eval_recs],
+        "losses": {k: [r[k] for r in train] for k in train[0]
+                   if k.startswith("loss") or k == "grad_norm"},
+        "launches_per_step": {k: v for k, v in steps[0].items() if v},
+        "launches_per_eval": {k: v for k, v in evals[0]["launches"].items()
+                              if v},
+        "profile_step": {k: profile[k] for k in
+                         ("wall_ms", "device_busy_ms", "device_busy_share")},
+        "profile_top": profile["top_kernels"],
+    }
+
+
+def check_eval_reference() -> dict:
+    """`evaluate_miou` of a stepped state on the reference config (card,
+    bf16, kernels) over EVAL_REF_SAMPLES samples at batch 2: exactly the
+    histogram and mIoU of MetricMIoU fed sample by sample from `predict`
+    of a second model that loads the EMA, on the same batches; the
+    training parameters, buffers, gradients and moments bit-identical
+    afterwards and every module back in its mode."""
+    import numpy as np
+
+    from preworld_tpu_torch.data import synthetic_batch, to_device
+    from preworld_tpu_torch.metrics import MetricMIoU
+    from preworld_tpu_torch.models import PreWorld
+    from preworld_tpu_torch.train import (
+        create_train_state,
+        evaluate_miou,
+        make_optimizer,
+        make_train_step,
+    )
+    from preworld_tpu_torch.train.evaluate import INFER_KEYS
+    from preworld_tpu_torch.utils import init_weights
+
+    cfg = dataclasses.replace(reference_config(), dtype=torch.bfloat16)
+    model = PreWorld(cfg)
+    init_weights(model, seed=1, fan_in=True)
+    model.cuda()
+    state = create_train_state(model, make_optimizer(model.parameters()),
+                               10560)
+    make_train_step()(state, to_device(synthetic_batch(cfg, 1, seed=7),
+                                       "cuda"),
+                      torch.Generator().manual_seed(11))
+    # an EMA far from the parameters (another seeded init), so that the
+    # check can tell which weights were scored
+    other = PreWorld(cfg)
+    init_weights(other, seed=2, fan_in=True)
+    with torch.no_grad():
+        for n, p in other.named_parameters():
+            state.ema_params[n].copy_(p)
+    b = synthetic_batch(cfg, EVAL_REF_SAMPLES, seed=3)
+    samples = [{k: v[i] for k, v in b.items()}
+               for i in range(EVAL_REF_SAMPLES)]
+    model.train()
+    model.occupancy_head.eval()  # a mixed mode must come back as it was
+    modes = [m.training for m in model.modules()]
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    grads = {n: p.grad.clone() for n, p in model.named_parameters()
+             if p.grad is not None}
+    moments = {n: {k: v.clone() for k, v in state.optimizer.state[p].items()}
+               for n, p in model.named_parameters()}
+    dumps = []
+    t0 = time.perf_counter()
+    got = evaluate_miou(model, state, iter(samples), batch_size=2,
+                        dump_fn=lambda i, occ: dumps.append((i, occ)))
+    eval_s = time.perf_counter() - t0
+    faults = [] if [m.training for m in model.modules()] == modes \
+        else ["modes"]
+    faults += [k for k, v in model.state_dict().items()
+               if not torch.equal(v, before[k])]
+    faults += [f"grad.{n}" for n, p in model.named_parameters()
+               if n in grads and not torch.equal(p.grad, grads[n])]
+    faults += [f"{k}.{n}" for n, p in model.named_parameters()
+               for k, v in moments[n].items()
+               if not torch.equal(state.optimizer.state[p][k], v)]
+
+    oracle = PreWorld(cfg)
+    oracle.load_state_dict({**before, **state.ema_params})
+    oracle.cuda().eval()
+    model.eval()
+    metric, scored = MetricMIoU(), MetricMIoU()
+    for i, occ in dumps:  # the histogram of what the eval predicted
+        s = samples[i]
+        scored.add_batch(occ, s["voxel_semantics"], None, s["mask_camera"])
+    differ = 0.0
+    for lo in range(0, EVAL_REF_SAMPLES, 2):
+        idx = [min(i, EVAL_REF_SAMPLES - 1) for i in (lo, lo + 1)]
+        batch = to_device({k: np.stack([samples[i][k] for i in idx])
+                           for k in INFER_KEYS if k in samples[0]}, "cuda")
+        occ = oracle.predict(batch)["semantic_occ"]
+        raw = model.predict(batch)["semantic_occ"]
+        differ = max(differ, float((occ != raw).float().mean()))
+        occ = occ.cpu().numpy()
+        for j in range(min(2, EVAL_REF_SAMPLES - lo)):
+            s = samples[lo + j]
+            metric.add_batch(occ[j], s["voxel_semantics"], None,
+                             s["mask_camera"])
+    want = metric.count_miou()
+    if got != want or not np.array_equal(scored.hist, metric.hist):
+        faults.append(f"mIoU {got['mIoU']} != oracle {want['mIoU']}, or "
+                      f"the histograms differ")
+    if not differ > 0:
+        faults.append("the EMA and the parameters predict alike")
+    if faults:
+        raise AssertionError(f"eval-reference: {faults[:8]}")
+    return {"mIoU": got["mIoU"], "oracle_mIoU": want["mIoU"],
+            "count": got["count"], "eval_s": eval_s,
+            "hist_sum": float(metric.hist.sum()),
+            "raw_params_differ_share": differ}
+
+
+def run_pretrain_loop_flagship(root: str, tmp: str) -> dict:
+    """The pretrain config's model for one epoch of one iteration from the
+    tree at batch 1, its 38400 rays built by the ported ray builders."""
+
+    from preworld_tpu_torch.data import DataLoader
+    from preworld_tpu_torch.train import make_train_step, train_epochs
+    from preworld_tpu_torch.utils import Config
+
+    conf = Config.fromfile(PRETRAIN_CONFIG)
+    state = config_state(conf)
+    expected = EXPECTED_PER_STEP_REMAT if state.model.cfg.remat \
+        else EXPECTED_PER_STEP
+    ds = tree_dataset(conf, root, is_train=True)
+    loader = TimedLoader(DataLoader(
+        ds, batch_size=1, num_workers=int(conf["data"]["workers_per_gpu"])
+        * 2, seed=0))
+    steps = []
+    work = os.path.join(tmp, "pretrain_run")
+    t0 = time.perf_counter()
+    train_epochs(state, counted(make_train_step(conf["ema"]["decay"]), steps),
+                 loader, 1, work, log_interval=1, checkpoint_interval=2,
+                 generator=torch.Generator().manual_seed(0),
+                 max_iters_per_epoch=1)
+    loop_s = time.perf_counter() - t0
+    train, _ = read_records(work, "pretrain-loop-flagship")
+    missing = [k for k in PRETRAIN_LOSSES if k not in train[0]]
+    if missing or len(steps) != 1 or steps[0] != expected \
+            or ds.max_ray_nums != 38400:
+        raise AssertionError(f"pretrain-loop-flagship: losses missing "
+                             f"{missing}, launches {steps}, rays "
+                             f"{ds.max_ray_nums}")
+    return {"rays": ds.max_ray_nums, "loop_s": loop_s,
+            "s_per_iter": train[0]["time_per_iter"],
+            "loader_wait_s": loader.waits[0][0],
+            "losses": {k: train[0][k] for k in PRETRAIN_LOSSES},
+            "launches_per_step": {k: v for k, v in steps[0].items() if v}}
 
 
 def sass_counts(lib_path: str) -> dict:
@@ -2341,6 +2925,21 @@ def main() -> int:
         if runs[name] is not None:
             status(name, "ok " + json.dumps(runs[name]))
         torch.cuda.empty_cache()
+    # the data layer, the train loop with its checkpoints, and the eval,
+    # on a nuScenes tree written into a temporary directory
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        tree = os.path.join(tmp, "nuscenes")
+        for name, fn in (
+                ("data-flagship", lambda: run_data_flagship(tree)),
+                ("train-loop-flagship",
+                 lambda: run_train_loop_flagship(tree, tmp)),
+                ("eval-reference", check_eval_reference),
+                ("pretrain-loop-flagship",
+                 lambda: run_pretrain_loop_flagship(tree, tmp))):
+            runs[name] = phase(name, fn)
+            if runs[name] is not None:
+                status(name, "ok " + json.dumps(runs[name]))
+            torch.cuda.empty_cache()
     if failures:
         print(f"chip_smoke: FAILED phases: {failures}", file=sys.stderr)
         return 1

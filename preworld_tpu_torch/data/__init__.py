@@ -1,3 +1,12 @@
+from .loader import DataLoader, collate
+from .nuplan import NUPLAN_GRID_CONFIG, NuPlanOccDataset
+from .nuscenes import (
+    DEFAULT_CAMS,
+    DYNAMIC_CLASSES,
+    NUSC_CLASS_NUMS,
+    NuScenesOccDataset,
+    wrs_dataset_balance_weight,
+)
 from .synthetic import (
     camera_rig,
     frame_batch,
@@ -7,5 +16,8 @@ from .synthetic import (
     to_device,
 )
 
-__all__ = ["camera_rig", "frame_batch", "synthetic_batch", "tiny_config",
-           "tiny_nerf_config", "to_device"]
+__all__ = ["DEFAULT_CAMS", "DYNAMIC_CLASSES", "DataLoader",
+           "NUPLAN_GRID_CONFIG", "NUSC_CLASS_NUMS", "NuPlanOccDataset",
+           "NuScenesOccDataset", "camera_rig", "collate", "frame_batch",
+           "synthetic_batch", "tiny_config", "tiny_nerf_config", "to_device",
+           "wrs_dataset_balance_weight"]

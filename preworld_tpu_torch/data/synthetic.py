@@ -64,13 +64,15 @@ def camera_rig(num_cams: int, input_size) -> Dict[str, np.ndarray]:
 
 
 def synthetic_batch(cfg: PreWorldConfig, batch_size: int = 1,
-                    seed: int = 0, with_labels: bool = False,
-                    num_rays: int = 512) -> Dict[str, np.ndarray]:
+                    num_rays: int = 512, seed: int = 0,
+                    with_labels: bool = True) -> Dict[str, np.ndarray]:
     """Random-but-consistent inputs: normal images, the camera ring, an
     ego driving forward 0.4 m per frame back in time, identity post-augs
     and BEV augmentation; with `with_labels`, uniform random occupancy
     classes, a 70 % camera mask, a 10 % sparse lidar depth map and
-    `num_rays` render rays per sample."""
+    `num_rays` render rays per sample. The arguments take the JAX
+    function's order and defaults; an inference batch passes
+    `with_labels=False`."""
     rng = np.random.default_rng(seed)
     H, W = cfg.input_size
     B, T, N = batch_size, cfg.num_frames, cfg.num_cams

@@ -5,10 +5,16 @@ from .frustum import (
     frustum_to_lidar,
     voxel_indices,
 )
-from .transforms import curr2adjsensor_chain, invert_rigid, sensor2keyego_chain
+from .transforms import (
+    bda_matrix,
+    curr2adjsensor_chain,
+    invert_rigid,
+    sensor2keyego_chain,
+)
 
 __all__ = [
     "GridConfig",
+    "bda_matrix",
     "create_frustum",
     "curr2adjsensor_chain",
     "frustum_pixel_indices",

@@ -1,10 +1,13 @@
-"""Rigid-transform chains: sensor -> key-ego and curr -> adjacent-sensor.
+"""Rigid-transform chains: sensor -> key-ego and curr -> adjacent-sensor,
+and the BEV-augmentation matrix.
 
-Counterpart of `preworld_tpu/geometry/transforms.py` for torch tensors.
+Counterpart of `preworld_tpu/geometry/transforms.py`: the chains on torch
+tensors, `bda_matrix` in numpy for the data pipeline.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -37,3 +40,21 @@ def curr2adjsensor_chain(sensor2egos, ego2globals, temporal_frames: int):
     adj_e2g = ego2globals[:, 1:temporal_frames + 1]
     out = invert_rigid(adj_e2g @ adj_s2e) @ curr_e2g @ curr_s2e
     return out.to(torch.float32)
+
+
+def bda_matrix(rotate_angle_deg: float = 0.0, scale_ratio: float = 1.0,
+               flip_dx: bool = False, flip_dy: bool = False) -> np.ndarray:
+    """BEV-augmentation 3x3 f32 matrix: rotation about z, a uniform 3-axis
+    scale, then the x / y flips, composed as flip @ scale @ rot
+    (`bev_transform`, reference `loading.py:1174-1204`)."""
+    ang = np.deg2rad(rotate_angle_deg)
+    rot = np.array([[np.cos(ang), -np.sin(ang), 0],
+                    [np.sin(ang), np.cos(ang), 0],
+                    [0, 0, 1]], np.float32)
+    scale = np.eye(3, dtype=np.float32) * scale_ratio
+    flip = np.eye(3, dtype=np.float32)
+    if flip_dx:
+        flip[0, 0] = -1.0
+    if flip_dy:
+        flip[1, 1] = -1.0
+    return (flip @ scale @ rot).astype(np.float32)

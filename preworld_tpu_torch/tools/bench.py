@@ -125,7 +125,8 @@ def main(argv=None) -> int:
     model = PreWorld(cfg).eval()
     init_weights(model, seed=0)
     model.to(device)
-    batch = to_device(synthetic_batch(cfg, 1, seed=0), device)
+    batch = to_device(synthetic_batch(cfg, 1, seed=0, with_labels=False),
+                      device)
     out = {"card": card_line(device)}
     if a.streaming:
         s, launches = bench_streaming(model, batch, REQUESTS)

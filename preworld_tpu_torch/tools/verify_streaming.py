@@ -68,7 +68,8 @@ def main(argv=None) -> int:
     model = PreWorld(cfg).eval()
     init_weights(model, seed=0)
     model.cuda()
-    batch = to_device(constant_pose(synthetic_batch(cfg, 1, seed=0)), "cuda")
+    batch = to_device(constant_pose(
+        synthetic_batch(cfg, 1, seed=0, with_labels=False)), "cuda")
     agree = streaming_agreement(model, batch)
     ok = agree >= AGREEMENT
     print(json.dumps({"check": "streaming_flagship_agreement",

@@ -151,7 +151,7 @@ def test_load_flax_params_values_and_strictness():
 def test_synthetic_batch_matches_jax(name, batch_size, seed):
     jcfg, pcfg = _configs(name)
     want = jax_synthetic_batch(jcfg, batch_size, seed=seed, with_labels=False)
-    got = synthetic_batch(pcfg, batch_size, seed=seed)
+    got = synthetic_batch(pcfg, batch_size, seed=seed, with_labels=False)
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k].dtype == want[k].dtype, k

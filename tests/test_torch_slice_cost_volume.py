@@ -262,7 +262,8 @@ def test_non_planar_post_aug_raises():
     one before it queues any work."""
     cfg = tiny_config(if_post_finetune=True, backbone="swin",
                       swin_embed_dims=128, swin_depths=(1, 1, 1, 1))
-    batch = to_device(synthetic_batch(cfg, 1, seed=0), "cpu")
+    batch = to_device(synthetic_batch(cfg, 1, seed=0, with_labels=False),
+                      "cpu")
     batch["post_rots"][0, 1, 1, 2, 0] = 0.01
     with pytest.raises(ValueError, match="2-D image post-augs"):
         PreWorld(cfg).eval().extract_voxel_feat(batch)

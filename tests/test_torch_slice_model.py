@@ -102,7 +102,8 @@ def _run(name):
                           if k not in ("if_render", "use_lss_depth_loss")})
     model = PreWorld(pcfg).eval()
     load_flax_params(model, jvars["params"], jvars["batch_stats"])
-    pbatch = to_device(synthetic_batch(pcfg, 1, seed=3), "cpu")
+    pbatch = to_device(synthetic_batch(pcfg, 1, seed=3, with_labels=False),
+                       "cpu")
     with torch.no_grad():
         vf, _ = model.extract_voxel_feat(pbatch)
         density, semantic, _ = model.predict_attributes(vf)

@@ -162,7 +162,8 @@ def test_grid_route_model_takes_3d_post_augs():
     cfg = tiny_config(if_post_finetune=True)
     model = PreWorld(cfg).eval()
     assert not model.stereo_on_plane_sweep
-    batch = to_device(synthetic_batch(cfg, 1, seed=0), "cpu")
+    batch = to_device(synthetic_batch(cfg, 1, seed=0, with_labels=False),
+                      "cpu")
     batch["post_rots"][0, :, :, 2, 0] = 0.01
     with torch.no_grad():
         vf, depth = model.extract_voxel_feat(batch)
