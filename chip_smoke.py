@@ -120,6 +120,29 @@ fallback to the CPU or to a kernel's plain version:
              and the render MLPs reach, 24 K1b and 24 K2b launches per step;
              step time, peak memory and a profiler breakdown of one more
              step.
+  traj-reference  the reference config as PreWorld4DTraj (6 cameras),
+             card (bf16, kernels) against CPU (f32, plain): the train step
+             at num_future 2 under train-reference's gates (each loss,
+             `loss_traj_1s` / `_2s` among them, within 1 %; the gradient
+             norm; the cosines against their calibration), then the 7
+             rollout predictions: each step's logits under the reference
+             gate and the share of voxels where the card's `predict`
+             gives the CPU's class.
+  traj-flagship  `build_model` of preworld_7frame_finetune_traj.py:
+             3 predicts with a 6-step rollout, timed with the batch
+             resident and with its upload (50 / 50 / 2 / 2 launches each,
+             peak bytes); then 2 train steps at each of num_future 2 and 6
+             (the curriculum's ends) with remat off and on (step ms, peak
+             bytes, EXPECTED_PER_STEP / _REMAT launches, a nonzero
+             gradient on every traj head and every parameter the loss
+             reaches); the OccHead's BatchNorm statistics after one
+             num_future 2 step with remat on and one with it off from the
+             same state, batch and masks (the same, so the recompute
+             folds nothing twice); a profiled num_future 6 step.
+  pretrain-traj-flagship  preworld_7frame_pretrain_traj.py's model: 2
+             steps at num_future 2 with its 19,200 rays per horizon
+             (remat as the config sets it), the render and traj losses of
+             every horizon finite, ms, peak bytes, launches.
   bench-parts  the `cost_volume` and `nerf` stages of
              `python3 -m preworld_tpu_torch.tools.bench_parts`, in-process:
              the plain grid route against K7 through
@@ -159,8 +182,18 @@ In a temporary directory the script deletes at its end:
   pretrain-loop-flagship  the pretrain config's model for one iteration at
              batch 1 from the tree (38400 rays): the six losses finite,
              K1b / K2b 24 launches each.
+  cli        the port's four CLIs, each a process of its own on the
+             card: `train --synthetic --epochs 1 --max-iters 2` on the
+             finetune-traj config (batch 2), `test_temporal --synthetic
+             --num-samples 2` on its work dir, `test --synthetic
+             --fuse-conv-bn --eval miou fscore` on the reference config as
+             a config file, and `convert_torch_checkpoint` of an mmcv
+             state dict made from a seeded finetune model, whose output
+             overlaid on a fresh model gives back every converted tensor
+             bit for bit. Each must exit 0 and print its result.
 
-Then one JSON line of per-kernel results (launches: K1-K4 from the flagship
+A `[done]` line gives the whole run's seconds. Then one JSON line of
+per-kernel results (launches: K1-K4 from the flagship
 predict run, K1b/K2b from the train-flagship run, K5/K5b from the
 swint-flagship request and step, K6/K6b from the swin-routes run, K7 from
 the bench-parts run; each
@@ -175,6 +208,7 @@ import dataclasses
 import json
 import math
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -1727,10 +1761,10 @@ def profile_call(fn, top: int = 60) -> dict:
 
 # ------------------------------------------------------------ train step
 
-def one_train_step(model, batch, device, ema_updates=10560):
+def one_train_step(model, batch, device, ema_updates=10560, **loss_kwargs):
     """One finetune step of `model` on `device` (drop-path and dropout
-    masks from a host generator seeded 11): metrics and the raw (pre-clip)
-    gradients, as f32 CPU tensors."""
+    masks from a host generator seeded 11; `loss_kwargs` to the loss):
+    metrics and the raw (pre-clip) gradients, as f32 CPU tensors."""
     from preworld_tpu_torch.data import to_device
     from preworld_tpu_torch.train import (
         create_train_state,
@@ -1740,44 +1774,50 @@ def one_train_step(model, batch, device, ema_updates=10560):
 
     opt = make_optimizer(model.parameters())
     state = create_train_state(model, opt, ema_updates)
-    _, metrics = make_train_step()(state, to_device(batch, device),
-                                   torch.Generator().manual_seed(11))
+    _, metrics = make_train_step(**loss_kwargs)(
+        state, to_device(batch, device), torch.Generator().manual_seed(11))
     grads = {n: p.grad.float().cpu() for n, p in model.named_parameters()
              if p.grad is not None}
     return {k: float(v) for k, v in metrics.items()}, grads
 
 
-def check_train_reference(name="train-reference", density_bias=None, **over):
+def check_train_reference(name="train-reference", density_bias=None,
+                          model_cls=None, loss_kwargs=None, **over):
     """The reference config's train step (finetune unless `over` says
     otherwise), card (bf16, kernels) against CPU (f32, plain), from the same
     weights, batch and masks; `density_bias` sets the density head's output
-    bias."""
+    bias. `model_cls`: the model, PreWorld by default; PreWorld4DTraj
+    takes a batch with the forecasting keys. `loss_kwargs` go to the
+    loss."""
     from preworld_tpu_torch.data import synthetic_batch
-    from preworld_tpu_torch.models import PreWorld
+    from preworld_tpu_torch.models import PreWorld, PreWorld4DTraj
     from preworld_tpu_torch.utils import init_weights
 
+    model_cls = model_cls or PreWorld
+    loss_kwargs = loss_kwargs or {}
     cfg = reference_config(**dict(dict(num_cams=6, if_render=False,
                                        use_lss_depth_loss=False), **over))
-    ref = PreWorld(cfg)
+    ref = model_cls(cfg)
     init_weights(ref, seed=1, fan_in=True)
     if density_bias is not None:
         with torch.no_grad():
             ref.density_mlp.Dense_1.bias.fill_(density_bias)
     state = {k: v.clone() for k, v in ref.state_dict().items()}
-    card = PreWorld(dataclasses.replace(cfg, dtype=torch.bfloat16))
+    card = model_cls(dataclasses.replace(cfg, dtype=torch.bfloat16))
     card.load_state_dict(state)
     card.cuda()
-    batch = synthetic_batch(cfg, 1, seed=7, with_labels=True)
-    want, gw = one_train_step(ref, batch, "cpu")
-    got, gg = one_train_step(card, batch, "cuda")
+    batch = synthetic_batch(cfg, 1, seed=7, with_labels=True,
+                            with_traj=model_cls is PreWorld4DTraj)
+    want, gw = one_train_step(ref, batch, "cpu", **loss_kwargs)
+    got, gg = one_train_step(card, batch, "cuda", **loss_kwargs)
     for k, v in got.items():
         if not math.isfinite(v):
             raise AssertionError(f"{name}: {k} = {v} on the card")
-    calib = PreWorld(cfg)
+    calib = model_cls(cfg)
     calib.load_state_dict({k: v.to(torch.bfloat16).to(v.dtype)
                            if v.is_floating_point() else v
                            for k, v in state.items()})
-    calib_metrics, gc = one_train_step(calib, batch, "cpu")
+    calib_metrics, gc = one_train_step(calib, batch, "cpu", **loss_kwargs)
     total = math.sqrt(sum(float((g ** 2).sum()) for g in gw.values()))
     live = [k for k, g in gw.items() if float(g.norm()) > 1e-4 * total]
 
@@ -2099,6 +2139,391 @@ def run_bench_parts():
     return {"stages": rows, "launches": launches,
             "cumdist_mask_ms": cumdist_ms,
             "samples_per_ray": spec.num_samples}
+
+
+# ------------------------------------------- the forecasting model and CLIs
+
+FINETUNE_TRAJ_CONFIG = "configs/preworld/preworld_7frame_finetune_traj.py"
+PRETRAIN_TRAJ_CONFIG = "configs/preworld/preworld_7frame_pretrain_traj.py"
+# the rollout curriculum's ends: `rollout_curriculum` gives 2 future steps
+# in the first epochs and 6 in the last
+TRAJ_FUTURES = (2, 6)
+# the forecasting heads, each of which must get a nonzero gradient
+TRAJ_HEADS = ("plan_head.", "fusion_head.", "downscale.", "ego_fusion_head.",
+              "traj_head.")
+# traj-flagship: train steps per (num_future, remat) setting
+TRAJ_STEPS = 2
+# cli: each command's time limit, and the reference config as a config file
+# (the finetune config with `reference_config`'s sizes)
+CLI_TIMEOUT_S = 600
+REFERENCE_CONFIG_FILE = """
+_base_ = ["{base}"]
+data_config = dict(input_size=(128, 352), Ncams=2)
+grid_config = dict(x=[-8.0, 8.0, 0.8], y=[-8.0, 8.0, 0.8],
+                   z=[-1.0, 5.4, 0.8], depth=[1.0, 9.0, 0.5])
+model = dict(swin=dict(depths=(2, 2, 2, 2)))
+"""
+# the port's Swin parameter names -> mmcv keys (the inverse of
+# `utils/torch_port.py::swin_key_map`), the first match applies
+SWIN_TO_MMCV = (
+    (r"^patch_embed\.", "patch_embed.projection."),
+    (r"^patch_norm\.", "patch_embed.norm."),
+    (r"^out_norm(\d)\.", r"norm\1."),
+    (r"^downsample(\d)\.", r"stages.\1.downsample."),
+    (r"^stage(\d+)_block(\d+)\.attn\.", r"stages.\1.blocks.\2.attn.w_msa."),
+    (r"^stage(\d+)_block(\d+)\.mlp_fc1\.",
+     r"stages.\1.blocks.\2.ffn.layers.0.0."),
+    (r"^stage(\d+)_block(\d+)\.mlp_fc2\.", r"stages.\1.blocks.\2.ffn.layers.1."),
+    (r"^stage(\d+)_block(\d+)\.", r"stages.\1.blocks.\2."),
+)
+
+
+def rollout_logits(model, batch, num_future: int = 6) -> list:
+    """The occupancy logits of the current frame and of each rollout
+    step."""
+    with torch.no_grad():
+        feats, _ = model.extract_voxel_feat(batch)
+        out = [model.occupancy_logits(feats)]
+        for _ in range(num_future):
+            feats, _ = model.rollout_step(feats, batch["ego_states"])
+            out.append(model.occupancy_logits(feats))
+    return out
+
+
+def check_traj_reference() -> dict:
+    """The reference config as PreWorld4DTraj (6 cameras), card (bf16,
+    kernels) against CPU (f32, plain): the train step at num_future 2 under
+    `check_train_reference`'s gates, then the 7 rollout predictions: each
+    step's logits under `card_vs_cpu`, and the share of voxels where the
+    card's `predict` gives the CPU's class."""
+    from preworld_tpu_torch.data import synthetic_batch, to_device
+    from preworld_tpu_torch.models import PreWorld4DTraj
+    from preworld_tpu_torch.train.evaluate import INFER_KEYS
+
+    res = check_train_reference("traj-reference", model_cls=PreWorld4DTraj,
+                                loss_kwargs={"num_future": 2})
+    ref, card = reference_pair(reference_config(num_cams=6), PreWorld4DTraj)
+    b = synthetic_batch(ref.cfg, 1, seed=7, with_traj=True)
+    b = {k: b[k] for k in INFER_KEYS}
+    want = rollout_logits(ref, to_device(b, "cpu"))
+    got = rollout_logits(card, to_device(b, "cuda"))
+    pred = card.predict(to_device(b, "cuda"))
+    if sorted(pred) != sorted(f"semantic_occ_{k}s" for k in range(7)):
+        raise AssertionError(f"traj-reference: predict keys {sorted(pred)}")
+    steps = []
+    for k, (g, w) in enumerate(zip(got, want)):
+        r = card_vs_cpu(f"traj-reference step {k}", g.float().cpu(), w)
+        r["predict_agree_share"] = float(
+            (pred[f"semantic_occ_{k}s"].cpu() == w.argmax(-1)).float().mean())
+        steps.append(r)
+    res["loss_traj"] = {k: v for k, v in res["losses"].items()
+                        if k.startswith("loss_traj")}
+    res["rollout"] = steps
+    return res
+
+
+def traj_batches(cfg, n: int, **kw) -> list:
+    """n synthetic traj batches (seeds 0 .. n - 1), numpy."""
+    from preworld_tpu_torch.data import synthetic_batch
+
+    return [synthetic_batch(cfg, 1, seed=s, with_traj=True, **kw)
+            for s in range(n)]
+
+
+def run_traj_flagship() -> dict:
+    """The finetune-traj config's model (Swin-B, 6 cameras at 512x1408, 3
+    frames, 200x200x16 grid, out_dim 32): REQUESTS predicts with a 6-step
+    rollout, timed with the batch resident and with its upload; then train
+    steps at num_future 2 and 6 (the curriculum's ends) with remat off and
+    on; the gradient of every traj head; and the OccHead's BatchNorm
+    statistics after one num_future 2 step with remat on and one with it
+    off from the same state, batch and masks."""
+    from preworld_tpu_torch.data import to_device
+    from preworld_tpu_torch.ops import _cuda
+    from preworld_tpu_torch.train import (
+        build_model,
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+    from preworld_tpu_torch.train.evaluate import INFER_KEYS
+    from preworld_tpu_torch.utils import Config, init_weights
+
+    conf = Config.fromfile(FINETUNE_TRAJ_CONFIG)
+    model = build_model(conf)
+    cfg = model.cfg
+    init_weights(model, seed=0, fan_in=True)
+    sx, sy, sz = (int(v) for v in cfg.grid.size)
+    batches = traj_batches(cfg, REQUESTS + 1)
+    infer = [{k: b[k] for k in INFER_KEYS} for b in batches[:REQUESTS]]
+
+    def request(batch, upload):
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        out = model.predict(to_device(batch, "cuda") if upload else batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_cuda.launches)
+        if sorted(out) != sorted(f"semantic_occ_{k}s" for k in range(7)):
+            raise AssertionError(f"traj-flagship: predict keys {sorted(out)}")
+        for k, occ in out.items():
+            if occ.shape != (1, sx, sy, sz) or occ.dtype != torch.int32 \
+                    or int(occ.min()) < 0 \
+                    or int(occ.max()) > cfg.num_classes - 1:
+                raise AssertionError(f"traj-flagship: {k} {occ.dtype} "
+                                     f"{tuple(occ.shape)}")
+        if launches != EXPECTED_PER_REQUEST:
+            raise AssertionError(f"traj-flagship: launches per request "
+                                 f"{launches}, expected "
+                                 f"{EXPECTED_PER_REQUEST}")
+        return ms
+
+    model.eval()
+    resident = [to_device(b, "cuda") for b in infer]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident_ms = [request(b, False) for b in resident]
+    upload_ms = [request(b, True) for b in infer]
+    predict_peak = torch.cuda.max_memory_allocated()
+    del resident
+    torch.cuda.empty_cache()
+
+    model.train()
+    init_updates, decay = conf["ema"]["init_updates"], conf["ema"]["decay"]
+    state = create_train_state(model, make_optimizer(model.parameters()),
+                               init_updates)
+    gen = torch.Generator().manual_seed(0)
+
+    def run(num_future, remat, i, st=None, generator=None):
+        model.cfg = dataclasses.replace(cfg, remat=remat)
+        step = make_train_step(decay, num_future=num_future)
+        batch = to_device(batches[i], "cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        _, metrics = step(state if st is None else st, batch,
+                          gen if generator is None else generator)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(_cuda.launches)
+        what = f"traj-flagship num_future {num_future} remat {remat}"
+        bad = [k for k, v in metrics.items() if not math.isfinite(v)]
+        if bad or f"loss_traj_{num_future}s" not in metrics \
+                or f"loss_traj_{num_future + 1}s" in metrics:
+            raise AssertionError(f"{what}: metrics {metrics}")
+        want = EXPECTED_PER_STEP_REMAT if remat else EXPECTED_PER_STEP
+        if launches != want:
+            raise AssertionError(f"{what}: launches {launches}, expected "
+                                 f"{want}")
+        return {"ms": ms, "peak_bytes": torch.cuda.max_memory_allocated(),
+                "metrics": metrics}
+
+    steps, head_grads = {}, {}
+    for num_future in TRAJ_FUTURES:
+        for remat in (False, True):
+            rs = [run(num_future, remat, i) for i in range(TRAJ_STEPS)]
+            steps[f"num_future {num_future} remat {remat}"] = {
+                "step_ms": [r["ms"] for r in rs],
+                "peak_bytes": max(r["peak_bytes"] for r in rs),
+                "loss_traj": {k: v for k, v in rs[-1]["metrics"].items()
+                              if k.startswith("loss_traj")}}
+            dead = [n for n, p in model.named_parameters()
+                    if not n.startswith(ZERO_GRAD_PREFIXES)
+                    and (p.grad is None or not bool((p.grad != 0).any()))]
+            if dead:
+                raise AssertionError(f"traj-flagship: no gradient on "
+                                     f"{len(dead)} parameters the loss "
+                                     f"reaches: {dead[:8]}")
+            head_grads[num_future] = {
+                h: math.sqrt(sum(float(p.grad.float().pow(2).sum())
+                                 for n, p in model.named_parameters()
+                                 if n.startswith(h)))
+                for h in TRAJ_HEADS}
+
+    # the OccHead's running statistics: remat on and off from one state
+    snap = {k: v.clone() for k, v in model.state_dict().items()}
+    bn_keys = [k for k in snap if k.startswith("occupancy_head.")
+               and k.endswith(("running_mean", "running_var"))]
+
+    def bn_after(remat):
+        model.load_state_dict(snap)
+        st = create_train_state(model, make_optimizer(model.parameters()),
+                                init_updates)
+        run(2, remat, REQUESTS, st, torch.Generator().manual_seed(5))
+        return {k: model.state_dict()[k].clone() for k in bn_keys}
+
+    plain, rematted = bn_after(False), bn_after(True)
+    moved = max(float((plain[k] - snap[k]).abs().max()) for k in bn_keys)
+    diff = max(float((plain[k] - rematted[k]).abs().max()) for k in bn_keys)
+    if not moved > 0 or diff > 1e-4 * moved:
+        raise AssertionError(f"traj-flagship: OccHead BN statistics moved "
+                             f"{moved}, remat against plain {diff}")
+    model.cfg = dataclasses.replace(cfg, remat=False)
+    batch = to_device(batches[0], "cuda")
+    step6 = make_train_step(decay, num_future=TRAJ_FUTURES[-1])
+    profile = profile_call(lambda: step6(state, batch, gen), top=16)
+    return {
+        "request_ms_resident": resident_ms, "request_ms_upload": upload_ms,
+        "predict_peak_bytes": predict_peak,
+        "launches_per_request": {k: v for k, v in
+                                 EXPECTED_PER_REQUEST.items() if v},
+        "steps": steps, "head_grad_norms": head_grads,
+        "occ_head_bn": {"tensors": len(bn_keys), "moved": moved,
+                        "remat_vs_plain_max_abs": diff},
+        "profile_num_future_6": profile,
+    }
+
+
+def run_pretrain_traj_flagship() -> dict:
+    """The pretrain-traj config's model: TRAJ_STEPS train steps at
+    num_future 2 with its max_ray_nums rays per horizon (remat as the
+    config sets it), losses finite, the step's launches."""
+    from preworld_tpu_torch.data import to_device
+    from preworld_tpu_torch.ops import _cuda
+    from preworld_tpu_torch.train import make_train_step
+    from preworld_tpu_torch.utils import Config
+
+    conf = Config.fromfile(PRETRAIN_TRAJ_CONFIG)
+    state = config_state(conf)
+    cfg = state.model.cfg
+    rays = int(conf["data"]["train"]["max_ray_nums"])
+    batches = traj_batches(cfg, TRAJ_STEPS, num_rays=rays, num_future=2)
+    step = make_train_step(conf["ema"]["decay"], num_future=2)
+    want = EXPECTED_PER_STEP_REMAT if cfg.remat else EXPECTED_PER_STEP
+    gen = torch.Generator().manual_seed(0)
+    ms = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches:
+        batch = to_device(b, "cuda")
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        _, metrics = step(state, batch, gen)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_cuda.launches)
+        keys = {"loss_render_depth_0s", "loss_render_depth_2s",
+                "loss_traj_1s", "loss_traj_2s", "loss_lss_depth"}
+        if not keys <= set(metrics) or not all(
+                math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"pretrain-traj-flagship: {metrics}")
+        if launches != want:
+            raise AssertionError(f"pretrain-traj-flagship: launches "
+                                 f"{launches}, expected {want}")
+    return {"rays_per_horizon": rays, "remat": cfg.remat, "step_ms": ms,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "losses": metrics}
+
+
+def mmcv_state_dict(model) -> dict:
+    """The port model's Swin, neck, depth net and BEV encoder tensors under
+    the reference checkpoint's mmcv keys (`full_model_key_map` and the
+    inverse of `swin_key_map`), CPU tensors."""
+    from preworld_tpu_torch.utils.flax_bridge import torch_name
+    from preworld_tpu_torch.utils.torch_port import (
+        full_model_key_map,
+        swin_key_map,
+    )
+
+    state = model.state_dict()
+    sd = {}
+    for name, p in model.img_backbone.named_parameters():
+        key = next(re.sub(pat, rep, name) for pat, rep in SWIN_TO_MMCV
+                   if re.match(pat, name))
+        path, _ = swin_key_map(key)
+        if torch_name(("img_backbone",) + path) != "img_backbone." + name:
+            raise AssertionError(f"cli: {name} -> {key} -> {path}")
+        sd["img_backbone." + key] = p.detach().cpu().clone()
+    for tprefix, (fpath, kind) in full_model_key_map().items():
+        base = ".".join(fpath)
+        leaves = (("weight", "bias", "running_mean", "running_var")
+                  if kind == "bn" else ("weight", "bias"))
+        for leaf in leaves:
+            if f"{base}.{leaf}" not in state:
+                continue
+            t = state[f"{base}.{leaf}"].cpu().clone()
+            if kind == "dense1x1" and leaf == "weight":
+                t = t[:, :, None, None]
+            sd[f"{tprefix}.{leaf}"] = t
+    return sd
+
+
+def run_cli(tmp: str) -> dict:
+    """The four CLIs, each a process of its own on the card:
+    `train --synthetic --epochs 1 --max-iters 2` on the finetune-traj
+    config, `test_temporal --synthetic --num-samples 2` on its work dir,
+    `test --synthetic --fuse-conv-bn --eval miou fscore` on the reference
+    config, and `convert_torch_checkpoint` of an mmcv state dict made from
+    a seeded model, whose output overlaid on a fresh model must give back
+    every converted tensor bit for bit. Each must exit 0 and print its
+    result."""
+    from preworld_tpu_torch.train import build_model
+    from preworld_tpu_torch.utils import Config, init_weights
+    from preworld_tpu_torch.utils.torch_port import overlay_flax_params
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    seconds = {}
+
+    def cli(name, *args):
+        t0 = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", f"preworld_tpu_torch.tools.{name}", *args],
+            cwd=root, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        seconds[name] = time.perf_counter() - t0
+        if p.returncode != 0:
+            raise AssertionError(f"cli {name}: exit {p.returncode}\n"
+                                 f"{p.stderr[-4000:]}")
+        last = p.stdout.strip().splitlines()[-1]
+        status("cli", f"{name}: {last}")
+        return last
+
+    work = os.path.join(tmp, "traj_work")
+    train = json.loads(cli("train", FINETUNE_TRAJ_CONFIG, "--synthetic",
+                           "--epochs", "1", "--max-iters", "2",
+                           "--work-dir", work))
+    if train["step"] != 2 or "loss_traj_2s" not in train["metrics"] \
+            or not all(math.isfinite(v) for v in train["metrics"].values()):
+        raise AssertionError(f"cli train: {train}")
+    temporal = json.loads(cli("test_temporal", FINETUNE_TRAJ_CONFIG, work,
+                              "--synthetic", "--num-samples", "2"))
+    if temporal["count"] != 2 or "mIoU_3s" not in temporal:
+        raise AssertionError(f"cli test_temporal: {temporal}")
+    ref_cfg = os.path.join(tmp, "reference.py")
+    with open(ref_cfg, "w") as fh:
+        fh.write(REFERENCE_CONFIG_FILE.format(
+            base=os.path.join(root, FINETUNE_CONFIG)))
+    test = json.loads(cli("test", ref_cfg, "--synthetic", "--fuse-conv-bn",
+                          "--eval", "miou", "fscore"))
+    if test["count"] != 4 or "fscore" not in test:
+        raise AssertionError(f"cli test: {test}")
+
+    conf = Config.fromfile(FINETUNE_CONFIG)
+    source = build_model(conf, device="cpu")
+    init_weights(source, seed=3, fan_in=True)
+    sd = mmcv_state_dict(source)
+    pth, pkl = os.path.join(tmp, "bevdet.pth"), os.path.join(tmp, "ported.pkl")
+    torch.save({"state_dict": sd}, pth)
+    converted = cli("convert_torch_checkpoint", pth, pkl)
+    with open(pkl, "rb") as fh:
+        ported = pickle.load(fh)
+    fresh = build_model(conf, device="cpu")
+    init_weights(fresh, seed=4, fan_in=True)
+    loaded, unexpected = overlay_flax_params(fresh, ported["params"],
+                                             ported["batch_stats"])
+    want, got = source.state_dict(), fresh.state_dict()
+    differ = [k for k in loaded if not torch.equal(got[k], want[k])]
+    swin = [n for n, _ in source.img_backbone.named_parameters()]
+    if unexpected or differ or not {f"img_backbone.{n}" for n in swin} \
+            <= set(loaded):
+        raise AssertionError(f"cli convert: unexpected {unexpected[:5]}, "
+                             f"differ {differ[:5]}")
+    return {"seconds": seconds, "train": train, "test_temporal": temporal,
+            "test": test, "convert": {"printed": converted,
+                                      "mmcv_tensors": len(sd),
+                                      "loaded": len(loaded)}}
 
 
 # ------------------------------------- data layer, train loop, evaluation
@@ -2691,6 +3116,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     from preworld_tpu_torch.ops import _cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2919,6 +3345,9 @@ def main() -> int:
                          "configs/preworld/preworld_7frame_pretrain.py",
                          PRETRAIN_ZERO_GRAD_PREFIXES, 38400, PRETRAIN_LOSSES,
                          "pretrain-flagship")),
+                     ("traj-reference", check_traj_reference),
+                     ("traj-flagship", run_traj_flagship),
+                     ("pretrain-traj-flagship", run_pretrain_traj_flagship),
                      ("bench-parts", run_bench_parts),
                      ("bench-entry", run_bench_entry)):
         runs[name] = phase(name, fn)
@@ -2935,11 +3364,13 @@ def main() -> int:
                  lambda: run_train_loop_flagship(tree, tmp)),
                 ("eval-reference", check_eval_reference),
                 ("pretrain-loop-flagship",
-                 lambda: run_pretrain_loop_flagship(tree, tmp))):
+                 lambda: run_pretrain_loop_flagship(tree, tmp)),
+                ("cli", lambda: run_cli(tmp))):
             runs[name] = phase(name, fn)
             if runs[name] is not None:
                 status(name, "ok " + json.dumps(runs[name]))
             torch.cuda.empty_cache()
+    status("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     if failures:
         print(f"chip_smoke: FAILED phases: {failures}", file=sys.stderr)
         return 1

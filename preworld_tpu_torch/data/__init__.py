@@ -7,6 +7,7 @@ from .nuscenes import (
     NuScenesOccDataset,
     wrs_dataset_balance_weight,
 )
+from .nuscenes_traj import NuScenesOccTrajDataset, flatten_ego_state
 from .synthetic import (
     camera_rig,
     frame_batch,
@@ -18,6 +19,7 @@ from .synthetic import (
 
 __all__ = ["DEFAULT_CAMS", "DYNAMIC_CLASSES", "DataLoader",
            "NUPLAN_GRID_CONFIG", "NUSC_CLASS_NUMS", "NuPlanOccDataset",
-           "NuScenesOccDataset", "camera_rig", "collate", "frame_batch",
+           "NuScenesOccDataset", "NuScenesOccTrajDataset", "camera_rig",
+           "collate", "flatten_ego_state", "frame_batch",
            "synthetic_batch", "tiny_config", "tiny_nerf_config", "to_device",
            "wrs_dataset_balance_weight"]

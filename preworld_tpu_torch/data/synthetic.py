@@ -1,10 +1,12 @@
 """Synthetic batches (numpy) for tests and the card smoke run.
 
-Counterpart of `preworld_tpu/data/synthetic.py` less the trajectory keys:
-for the same config, seed and ray count, `synthetic_batch` returns arrays
-byte-identical to the JAX package's `synthetic_batch`, with the training
-keys `voxel_semantics`, `mask_camera`, `gt_depth` and the render rays
-`rays` when `with_labels`.
+Counterpart of `preworld_tpu/data/synthetic.py`: for the same config,
+seed, ray count and horizon, `synthetic_batch` returns arrays byte-identical
+to the JAX package's `synthetic_batch`, with the training keys
+`voxel_semantics`, `mask_camera`, `gt_depth` and the render rays `rays`
+when `with_labels`, and the forecasting keys `ego_states`,
+`temporal_semantics`, `temporal_rays` and `temporal_trajs` when also
+`with_traj`.
 """
 
 from __future__ import annotations
@@ -65,12 +67,16 @@ def camera_rig(num_cams: int, input_size) -> Dict[str, np.ndarray]:
 
 def synthetic_batch(cfg: PreWorldConfig, batch_size: int = 1,
                     num_rays: int = 512, seed: int = 0,
-                    with_labels: bool = True) -> Dict[str, np.ndarray]:
+                    with_labels: bool = True, with_traj: bool = False,
+                    num_future: int = 6) -> Dict[str, np.ndarray]:
     """Random-but-consistent inputs: normal images, the camera ring, an
     ego driving forward 0.4 m per frame back in time, identity post-augs
     and BEV augmentation; with `with_labels`, uniform random occupancy
     classes, a 70 % camera mask, a 10 % sparse lidar depth map and
-    `num_rays` render rays per sample. The arguments take the JAX
+    `num_rays` render rays per sample; with `with_traj` too, the ego state
+    N(0, 1) (B, 21), `num_future` frames of future occupancy classes, the
+    key frame's rays repeated per future frame and N(0, 1) waypoints (B,
+    num_future, 2), drawn after the rays. The arguments take the JAX
     function's order and defaults; an inference batch passes
     `with_labels=False`."""
     rng = np.random.default_rng(seed)
@@ -116,6 +122,14 @@ def synthetic_batch(cfg: PreWorldConfig, batch_size: int = 1,
     rays[..., 10:13] = dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
     rays[..., 13:16] = rng.uniform(0, 1, (B, num_rays, 3))
     batch["rays"] = rays
+    if with_traj:
+        batch["ego_states"] = rng.normal(0, 1, (B, 21)).astype(np.float32)
+        batch["temporal_semantics"] = rng.integers(
+            0, cfg.num_classes, (B, num_future, sx, sy, sz)).astype(np.int32)
+        batch["temporal_rays"] = np.broadcast_to(
+            rays[:, None], (B, num_future, num_rays, RAY_DIM)).copy()
+        batch["temporal_trajs"] = rng.normal(
+            0, 1, (B, num_future, 2)).astype(np.float32)
     return batch
 
 

@@ -369,21 +369,9 @@ class PreWorld(nn.Module):
                                                      generator=generator)
         losses: Dict[str, torch.Tensor] = {}
         if c.if_post_finetune:
-            logits = self.occupancy_logits(voxel_feats)
-            target = batch["voxel_semantics"].long()
-            cls_w = torch.from_numpy(voxel_class_weights(
-                c.num_classes, c.balance_cls_weight)).to(logits.device)
-            if c.use_focal_loss:
-                ce = distance_weighted_focal_loss(logits, target, cls_w)
-            else:
-                ce = ce_ssc_loss(logits, target, cls_w)
-            losses["loss_voxel_ce"] = c.weight_voxel_ce * ce
-            losses["loss_voxel_sem"] = c.weight_voxel_sem_scal * \
-                sem_scal_loss(logits, target)
-            losses["loss_voxel_geo"] = c.weight_voxel_geo_scal * \
-                geo_scal_loss(logits, target, non_empty_idx=c.empty_idx)
-            losses["loss_voxel_lovasz"] = c.weight_voxel_lovasz * \
-                lovasz_softmax_loss(logits, target, ignore_index=c.empty_idx)
+            losses.update(self._voxel_losses(
+                self.occupancy_logits(voxel_feats),
+                batch["voxel_semantics"].long()))
         if c.if_render:
             density, semantic, color = self.predict_attributes(voxel_feats)
             losses.update(nerf_head_losses(density, semantic, color,
@@ -394,6 +382,27 @@ class PreWorld(nn.Module):
                 depth, batch["gt_depth"], self.view_transformer.downsample,
                 c.grid, weight=c.depth_loss_weight)
         return losses
+
+    def _voxel_losses(self, logits, target, suffix: str = ""):
+        """The four weighted voxel losses of `logits` (B, X, Y, Z, C) f32
+        against `target` (B, X, Y, Z) int64, each key ending in `suffix`:
+        focal (or CE), semantic scal, geometric scal and Lovasz."""
+        c = self.cfg
+        cls_w = torch.from_numpy(voxel_class_weights(
+            c.num_classes, c.balance_cls_weight)).to(logits.device)
+        if c.use_focal_loss:
+            ce = distance_weighted_focal_loss(logits, target, cls_w)
+        else:
+            ce = ce_ssc_loss(logits, target, cls_w)
+        return {
+            "loss_voxel_ce" + suffix: c.weight_voxel_ce * ce,
+            "loss_voxel_sem" + suffix: c.weight_voxel_sem_scal
+            * sem_scal_loss(logits, target),
+            "loss_voxel_geo" + suffix: c.weight_voxel_geo_scal
+            * geo_scal_loss(logits, target, non_empty_idx=c.empty_idx),
+            "loss_voxel_lovasz" + suffix: c.weight_voxel_lovasz
+            * lovasz_softmax_loss(logits, target, ignore_index=c.empty_idx),
+        }
 
     def _occupancy(self, voxel_feats):
         """The inference head: (semantic_occ, geo_occ), (B, X, Y, Z) int32

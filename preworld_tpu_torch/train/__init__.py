@@ -2,10 +2,16 @@
 train step; the epoch loop, checkpoints and the mIoU evaluation."""
 
 from .builder import build_model
-from .checkpoints import latest_step, restore_checkpoint, save_checkpoint
+from .checkpoints import (
+    checkpoint_path,
+    latest_step,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from .evaluate import (
     evaluate_miou,
     evaluate_miou_temporal,
+    model_predict_fn,
     rank_padded_indices,
 )
 from .loop import maybe_resume, train_epochs
@@ -24,6 +30,7 @@ __all__ = [
     "ClippedAdamW",
     "TrainState",
     "build_model",
+    "checkpoint_path",
     "create_train_state",
     "ema_decay_schedule",
     "eval_params",
@@ -34,6 +41,7 @@ __all__ = [
     "make_optimizer",
     "make_train_step",
     "maybe_resume",
+    "model_predict_fn",
     "rank_padded_indices",
     "restore_checkpoint",
     "save_checkpoint",

@@ -4,9 +4,10 @@ Counterpart of `preworld_tpu/train/builder.py::build_model`: the same config
 tree (a `utils.config.Config` read from `configs/`) becomes the port's
 `PreWorldConfig`, with the JAX package's defaults for every missing key,
 the render head's `nerf_head` dict included (`build_nerf_config`).
-`type="PreWorld"` builds `PreWorld` and `type="BEVStereo4DOCC"` the
-baseline `BEVStereoOCC`; `PreWorld4DTraj` is not ported yet. The model is
-built on the card unless the caller asks for another device.
+`type="PreWorld"` builds `PreWorld`, `type="PreWorld4DTraj"` the
+forecasting model and `type="BEVStereo4DOCC"` the baseline `BEVStereoOCC`,
+every type the JAX builder knows. The model is built on the card unless
+the caller asks for another device.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from ..geometry.frustum import GridConfig
 from ..models.nerf_head import NerfHeadConfig
 from ..models.bevstereo_occ import BEVStereoOCC
 from ..models.preworld import PreWorld, PreWorldConfig
+from ..models.preworld_traj import PreWorld4DTraj
 from ..ops.render import RaySamplingSpec
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -62,11 +64,10 @@ def build_model(cfg, device="cuda") -> PreWorld:
     pass "cpu" for the CPU)."""
     m = cfg["model"]
     mtype = m.get("type", "PreWorld")
-    models = {"PreWorld": PreWorld, "BEVStereo4DOCC": BEVStereoOCC}
+    models = {"PreWorld": PreWorld, "PreWorld4DTraj": PreWorld4DTraj,
+              "BEVStereo4DOCC": BEVStereoOCC}
     if mtype not in models:
-        raise NotImplementedError(
-            f"model type {mtype!r} is not ported; of the JAX package's "
-            "types only PreWorld4DTraj remains (ROADMAP P15b)")
+        raise ValueError(f"unknown model type {mtype!r}")
     swin = m.get("swin", {})
     grid = build_grid_config(cfg["grid_config"])
     return models[mtype](PreWorldConfig(

@@ -107,18 +107,20 @@ def all_hosts_sum(hist: np.ndarray) -> np.ndarray:
 class _Predictor(torch.nn.Module):
     """`model.predict` as a module's forward, for `functional_call`."""
 
-    def __init__(self, model: torch.nn.Module):
+    def __init__(self, model: torch.nn.Module, **predict_kwargs):
         super().__init__()
         self.model = model
+        self.predict_kwargs = predict_kwargs
 
     def forward(self, batch):
-        return self.model.predict(batch)
+        return self.model.predict(batch, **self.predict_kwargs)
 
 
-def _model_predict_fn(model: torch.nn.Module) -> Callable:
-    """(params, batch) -> model.predict(batch) with `params` in place of
-    the model's parameters and its own buffers, in eval mode."""
-    wrapper = _Predictor(model)
+def model_predict_fn(model: torch.nn.Module, **predict_kwargs) -> Callable:
+    """(params, batch) -> model.predict(batch, **predict_kwargs) with
+    `params` in place of the model's parameters and its own buffers, in
+    eval mode."""
+    wrapper = _Predictor(model, **predict_kwargs)
 
     def predict_fn(params, batch):
         modes = [(m, m.training) for m in model.modules()]
@@ -174,7 +176,7 @@ def evaluate_miou(
     batch_size = batch_size or 1
     device = _device(model, device)
     params = eval_params(state)
-    predict_fn = predict_fn or _model_predict_fn(model)
+    predict_fn = predict_fn or model_predict_fn(model)
 
     metric = MetricMIoU(num_classes=num_classes, use_image_mask=use_image_mask)
     seen = 0
@@ -236,7 +238,7 @@ def evaluate_miou_temporal(
     batch_size = batch_size or 1
     device = _device(model, device)
     params = eval_params(state)
-    predict_fn = predict_fn or _model_predict_fn(model)
+    predict_fn = predict_fn or model_predict_fn(model)
 
     metric = MetricMIoUTemporal(num_classes=num_classes)
     for batch, n_valid in _batched(samples, batch_size):

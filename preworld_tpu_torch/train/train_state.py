@@ -133,17 +133,18 @@ def eval_params(state: TrainState) -> Dict[str, torch.Tensor]:
     return {n: p.detach() for n, p in state.model.named_parameters()}
 
 
-def make_train_step(ema_decay: float = 0.999):
+def make_train_step(ema_decay: float = 0.999, **loss_kwargs):
     """(state, batch, generator) -> (state, metrics): the model's loss dict
     in train mode with masks from `generator`, backward, clip + AdamW, EMA.
     metrics: each loss, `loss_total` and the pre-clip `grad_norm`, as 0-d
-    tensors on the model's device."""
+    tensors on the model's device. `loss_kwargs` go to `model.loss`, e.g.
+    `num_future=` for the forecasting model's rollout curriculum."""
 
     def train_step(state: TrainState, batch, generator: torch.Generator):
         model, opt = state.model, state.optimizer
         model.train()
         opt.zero_grad(set_to_none=True)
-        losses = model.loss(batch, generator)
+        losses = model.loss(batch, generator, **loss_kwargs)
         total = sum(losses[k] for k in sorted(losses))
         total.backward()
         grad_norm = opt.step()

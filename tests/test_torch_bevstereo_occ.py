@@ -195,5 +195,9 @@ def test_build_model_matches_jax(tmp_path):
     traj = tmp_path / "traj_tiny.py"
     traj.write_text(BEVSTEREO_TINY_CFG.replace("BEVStereo4DOCC",
                                                "PreWorld4DTraj"))
-    with pytest.raises(NotImplementedError, match="PreWorld4DTraj"):
-        build_model(Config.fromfile(str(traj)), device="cpu")
+    from preworld_tpu.models import PreWorld4DTraj as JaxPreWorld4DTraj
+    from preworld_tpu_torch.models import PreWorld4DTraj
+
+    model = build_model(Config.fromfile(str(traj)), device="cpu")
+    want = jax_build_model(JaxConfig.fromfile(str(traj)))
+    assert type(model) is PreWorld4DTraj and type(want) is JaxPreWorld4DTraj
