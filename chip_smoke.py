@@ -192,6 +192,45 @@ In a temporary directory the script deletes at its end:
              overlaid on a fresh model gives back every converted tensor
              bit for bit. Each must exit 0 and print its result.
 
+Training across processes (`preworld_tpu_torch/parallel/`), after cli.
+Each phase's ranks are processes of their own (this script with
+`--dist-worker`, or torchrun), on the kernels already built: 2 ranks
+sharing cuda:0 over gloo, and again over NCCL with one card a rank where
+there are 2 cards or more (a `[dist] layout` line says which ran). A
+failing rank, a time limit or a gate fails the phase.
+
+  dist       the one-process oracles of the three phases below on this
+             process, then one launch of the ranks running their jobs.
+  dist-reference  the reference config (train-reference's small config,
+             6 cameras, bf16, seeded weights, the same masks): its
+             finetune step in 2 processes x batch 1 against one process
+             at batch 2, and its pretrain step (512 rays, the density
+             bias of pretrain-reference) with n_data 1, n_seq 2 (256 rays
+             a rank) against the dense one-process step. Gates, each
+             calibrated by two one-process runs (the second from the
+             bf16-rounded weights): each loss within TRAIN_TOL["loss_rel"],
+             the gradient norm within TRAIN_TOL["grad_norm_rel"], whole and
+             median per-tensor gradient cosines at most COS_MARGIN below
+             the calibration's, the BatchNorm running statistics after the
+             step no further (rel-L2) than the calibration's; the ranks'
+             metrics and parameters bit-identical.
+  dist-flagship  build_model of the finetune config, remat on: 2 ranks at
+             its samples_per_gpu (2) for 3 steps against one process at
+             batch 4, losses and gradient norm under dist-reference's loss
+             gates, parameters bit-identical, every rank's launches those
+             of a remat step (K1b / K2b 24 each); ms a step, the gradient
+             all-reduce's ms and bytes, peak bytes a rank, the collectives
+             a step (batchnorm: the synced BatchNorms' all_reduces).
+  seq-flagship  the pretrain config with n_seq 2: each rank renders
+             19,200 of the 38,400 rays; the six losses against the dense
+             one-process step under the same gates; peak bytes a rank
+             beside the dense run's.
+  cli-dist   `python -m torch.distributed.run --nproc_per_node 2 -m
+             preworld_tpu_torch.tools.train` on the finetune config
+             (`--synthetic --epochs 1 --max-iters 2 --device cuda:0
+             --dist-backend gloo`): exit 0, one JSON line, exactly one
+             checkpoint; then `--auto-resume` for one more iteration.
+
 A `[done]` line gives the whole run's seconds. Then one JSON line of
 per-kernel results (launches: K1-K4 from the flagship
 predict run, K1b/K2b from the train-flagship run, K5/K5b from the
@@ -3077,6 +3116,525 @@ def run_pretrain_loop_flagship(root: str, tmp: str) -> dict:
             "launches_per_step": {k: v for k, v in steps[0].items() if v}}
 
 
+# ------------------------------------------ training across processes
+
+# the multi-process phases: 2 ranks; over gloo on one card (cuda:0 shared),
+# and where there are 2 cards or more, over NCCL with one card a rank
+DIST_WORLD = 2
+DIST_TIMEOUT_S = 900
+# dist-reference: (n_data, n_seq, global batch, config overrides, density
+# head bias) of the reference config's finetune and pretrain steps; the
+# pretrain mesh splits each scene's 512 rays over 'seq'
+DIST_REFERENCE = {
+    "finetune": (2, 1, 2, dict(if_render=False, use_lss_depth_loss=False),
+                 None),
+    "pretrain": (1, 2, 1, dict(if_post_finetune=False, if_render=True,
+                               use_lss_depth_loss=True),
+                 PRETRAIN_REF_DENSITY_BIAS),
+}
+# dist-flagship: steps, the global batch (2 ranks at the finetune
+# config's samples_per_gpu, 2) and its rays
+DIST_FLAGSHIP_STEPS, DIST_FLAGSHIP_BATCH = 3, 4
+# seq-flagship: steps of the pretrain config at 38400 rays
+SEQ_FLAGSHIP_STEPS, SEQ_FLAGSHIP_RAYS = 2, 38400
+
+
+def dist_layouts() -> list:
+    """(backend, one card a rank) of each multi-process run: gloo with the
+    ranks sharing cuda:0, then NCCL with cuda:rank where there are 2 cards
+    or more (NCCL refuses two ranks on one card)."""
+    layouts = [("gloo", False)]
+    if torch.cuda.device_count() >= DIST_WORLD:
+        layouts.append(("nccl", True))
+    return layouts
+
+
+def layout_name(backend: str, per_card: bool) -> str:
+    return (f"{backend}, {DIST_WORLD} processes, "
+            + ("one card each" if per_card else "sharing cuda:0"))
+
+
+def dist_env(rank: int, port: int) -> dict:
+    return dict(os.environ, RANK=str(rank), LOCAL_RANK=str(rank),
+                WORLD_SIZE=str(DIST_WORLD), MASTER_ADDR="127.0.0.1",
+                MASTER_PORT=str(port), GLOO_SOCKET_IFNAME="lo")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_all(procs, what: str, timeout: float) -> list:
+    """Wait for every process; the first that fails (or the time limit)
+    stops the others and fails `what`. Returns their (stdout, stderr)."""
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            bad = [p for p in procs if p.poll() not in (None, 0)]
+            if bad or time.perf_counter() - t0 > timeout:
+                break
+            time.sleep(0.5)
+        outs = [p.communicate(timeout=30) if p.poll() is not None
+                else ("", "") for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: rank {r} exited {p.returncode}"
+                                 f"\n{out[-2000:]}\n{err[-6000:]}")
+    return outs
+
+
+def launch_dist_jobs(jobs, tmp: str, backend: str, per_card: bool) -> list:
+    """Run `jobs` ((key, function name, kwargs)) in DIST_WORLD processes of
+    this script (`--dist-worker`), ranks joined over `backend`; each rank's
+    {key: result}."""
+    os.makedirs(tmp, exist_ok=True)
+    with open(os.path.join(tmp, "jobs.pkl"), "wb") as fh:
+        pickle.dump({"jobs": jobs, "backend": backend,
+                     "per_card": per_card}, fh)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", tmp],
+        env=dist_env(r, port), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(DIST_WORLD)]
+    wait_all(procs, f"dist workers ({backend})", DIST_TIMEOUT_S)
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(DIST_WORLD)]
+
+
+def dist_worker(tmp: str) -> int:
+    """A rank of `launch_dist_jobs`: joins the group, runs the jobs in
+    order, saves their results."""
+    import torch.distributed as dist
+
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(tmp, "jobs.pkl"), "rb") as fh:
+        spec = pickle.load(fh)
+    device = torch.device(f"cuda:{rank if spec['per_card'] else 0}")
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        spec["backend"], rank=rank, world_size=DIST_WORLD,
+        init_method=f"tcp://127.0.0.1:{os.environ['MASTER_PORT']}")
+    out = {key: globals()[name](device, **kw)
+           for key, name, kw in spec["jobs"]}
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+    return 0
+
+
+def params_digest(model) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for _, p in sorted(model.named_parameters()):
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def bn_stats(model) -> dict:
+    return {n: b.detach().float().cpu().clone()
+            for n, b in model.named_buffers()
+            if n.endswith(("running_mean", "running_var"))}
+
+
+def stats_rel_l2(got: dict, want: dict) -> float:
+    num = math.sqrt(sum(float((got[k] - w).pow(2).sum())
+                        for k, w in want.items()))
+    return num / math.sqrt(sum(float(w.pow(2).sum()) for w in want.values()))
+
+
+def grad_cosines(g: dict, gw: dict, live: list) -> tuple:
+    """(whole-gradient cosine, median per-tensor cosine, {name: cosine}) of
+    `g` against `gw` over the `live` tensors."""
+    cos = {k: float(torch.nn.functional.cosine_similarity(
+        g[k].reshape(-1).double(), gw[k].reshape(-1).double(), dim=0))
+        for k in live}
+    flat = torch.nn.functional.cosine_similarity(
+        torch.cat([g[k].reshape(-1) for k in live]).double(),
+        torch.cat([gw[k].reshape(-1) for k in live]).double(), dim=0)
+    return float(flat), statistics.median(cos.values()), cos
+
+
+def dist_reference_model(kind: str, device):
+    """The reference config's model for `kind` ("finetune" / "pretrain"),
+    bf16, 6 cameras, the weights of train-reference (seed 1), on
+    `device`; and the global batch."""
+    from preworld_tpu_torch.data import synthetic_batch, tiny_nerf_config
+    from preworld_tpu_torch.models import PreWorld
+    from preworld_tpu_torch.utils import init_weights
+
+    _, _, batch, over, bias = DIST_REFERENCE[kind]
+    if kind == "pretrain":
+        over = dict(over, nerf=tiny_nerf_config())
+    cfg = reference_config(num_cams=6, dtype=torch.bfloat16, **over)
+    model = PreWorld(cfg)
+    init_weights(model, seed=1, fan_in=True)
+    if bias is not None:
+        with torch.no_grad():
+            model.density_mlp.Dense_1.bias.fill_(bias)
+    return model.to(device), synthetic_batch(cfg, batch, seed=7,
+                                             with_labels=True)
+
+
+def dist_reference_rank(device, kind: str) -> dict:
+    """A rank's train step of dist-reference: its rows (and, pretrain, its
+    half of the rays) of the global batch, on the (n_data, n_seq) mesh."""
+    from preworld_tpu_torch import parallel
+    from preworld_tpu_torch.data import to_device
+    from preworld_tpu_torch.ops import _cuda
+    from preworld_tpu_torch.train import (
+        create_train_state,
+        make_optimizer,
+        make_train_step,
+    )
+
+    n_data, n_seq = DIST_REFERENCE[kind][:2]
+    mesh = parallel.make_mesh(n_data, n_seq)
+    model, batch = dist_reference_model(kind, device)
+    local = to_device(parallel.shard_batch(mesh, batch), device)
+    state = create_train_state(model, make_optimizer(model.parameters()),
+                               10560)
+    _cuda.reset_launches()
+    parallel.counts.clear()
+    _, metrics = make_train_step(mesh=mesh)(
+        state, local, torch.Generator().manual_seed(11))
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: p.grad.float().cpu()
+                      for n, p in model.named_parameters()
+                      if p.grad is not None},
+            "stats": bn_stats(model), "digest": params_digest(model),
+            "launches": dict(_cuda.launches),
+            "collectives": dict(parallel.counts),
+            "rays": parallel.seq_rays(mesh, local["rays"])[0].shape[1]}
+
+
+def dist_reference_oracle(kind: str) -> dict:
+    """The one-process step of dist-reference at the global batch, and its
+    calibration: the same step from the bf16-rounded weights."""
+    out = {}
+    for name in ("one", "calib"):
+        model, batch = dist_reference_model(kind, "cuda")
+        if name == "calib":
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.copy_(p.to(torch.bfloat16).float())
+        metrics, grads = one_train_step(model, batch, "cuda")
+        out[name] = {"metrics": metrics, "grads": grads,
+                     "stats": bn_stats(model)}
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_dist_reference(oracle: dict, ranks: list, kind: str) -> dict:
+    """The ranks' step against the one-process step, under train-
+    reference's gates calibrated by two one-process runs: each loss within
+    TRAIN_TOL["loss_rel"], the gradient norm within
+    TRAIN_TOL["grad_norm_rel"], the whole-gradient and median per-tensor
+    cosines at most COS_MARGIN below the calibration's, the BatchNorm
+    running statistics no further (rel-L2) from the one-process ones than
+    the calibration's; every rank's metrics and parameters alike."""
+    want, calib, got = oracle["one"], oracle["calib"], ranks[0]
+    wm, gm = want["metrics"], got["metrics"]
+    gw = want["grads"]
+    total = math.sqrt(sum(float((g ** 2).sum()) for g in gw.values()))
+    live = [k for k, g in gw.items() if float(g.norm()) > 1e-4 * total]
+    global_cos, median_cos, cos = grad_cosines(got["grads"], gw, live)
+    calib_global, calib_median, _ = grad_cosines(calib["grads"], gw, live)
+    res = {
+        "loss_rel": max(abs(gm[k] - wm[k]) / abs(wm[k])
+                        for k in wm if k != "grad_norm"),
+        "calib_loss_rel": max(abs(calib["metrics"][k] - wm[k]) / abs(wm[k])
+                              for k in wm if k != "grad_norm"),
+        "grad_norm_rel": abs(gm["grad_norm"] - wm["grad_norm"])
+        / wm["grad_norm"],
+        "calib_grad_norm_rel": abs(calib["metrics"]["grad_norm"]
+                                   - wm["grad_norm"]) / wm["grad_norm"],
+        "global_cos": global_cos, "median_cos": median_cos,
+        "calib_global_cos": calib_global, "calib_median_cos": calib_median,
+        "bn_rel_l2": stats_rel_l2(got["stats"], want["stats"]),
+        "calib_bn_rel_l2": stats_rel_l2(calib["stats"], want["stats"]),
+        "worst": {k: cos[k] for k in sorted(cos, key=cos.get)[:3]},
+        "rays_per_rank": got["rays"], "collectives": got["collectives"],
+        "launches": {k: v for k, v in got["launches"].items() if v},
+    }
+    same = all(r["digest"] == got["digest"] and r["metrics"] == gm
+               for r in ranks)
+    ok = (res["loss_rel"] <= TRAIN_TOL["loss_rel"]
+          and res["grad_norm_rel"] <= TRAIN_TOL["grad_norm_rel"]
+          and global_cos >= calib_global - COS_MARGIN
+          and median_cos >= calib_median - COS_MARGIN
+          and res["bn_rel_l2"] <= res["calib_bn_rel_l2"] and same
+          and set(gm) == set(wm))
+    if not ok:
+        raise AssertionError(f"dist-reference {kind}: {res}; ranks alike "
+                             f"{same}")
+    return res
+
+
+def flagship_dist_state(device, config: str, remat: bool):
+    """`build_model` of `config` on `device` with train-flagship's weights
+    (seed 0), remat as given, and its train state."""
+    from preworld_tpu_torch.train import (
+        build_model,
+        create_train_state,
+        make_optimizer,
+    )
+    from preworld_tpu_torch.utils import Config, init_weights
+
+    conf = Config.fromfile(config)
+    model = build_model(conf, device=device)
+    model.cfg = dataclasses.replace(model.cfg, remat=remat)
+    init_weights(model, seed=0, fan_in=True)
+    return conf, create_train_state(model, make_optimizer(
+        model.parameters()), conf["ema"]["init_updates"])
+
+
+def flagship_dist_steps(device, config: str, batch: int, num_rays: int,
+                        steps: int, remat: bool, mesh=None) -> dict:
+    """`steps` train steps of `config`'s model on one synthetic batch of
+    `batch` scenes (seed 0; this rank's rows under `mesh`; one batch, as
+    making a flagship sample on the host takes ~1 s): metrics, ms, peak
+    bytes, launches and collectives a step, the gradient all-reduce's ms
+    and bytes, the parameters' digest."""
+    from preworld_tpu_torch import parallel
+    from preworld_tpu_torch.data import synthetic_batch, to_device
+    from preworld_tpu_torch.ops import _cuda
+    from preworld_tpu_torch.train import make_train_step, train_state
+
+    conf, state = flagship_dist_state(device, config, remat)
+    b = to_device(parallel.shard_batch(mesh, synthetic_batch(
+        state.model.cfg, batch, seed=0, with_labels=True, num_rays=num_rays)),
+        device)
+    reduces = []
+    allreduce = train_state.allreduce_grads
+
+    def timed_allreduce(params, group):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        nbytes = allreduce(params, group)
+        torch.cuda.synchronize(device)
+        reduces.append(((time.perf_counter() - t0) * 1e3, nbytes))
+        return nbytes
+
+    step = make_train_step(conf["ema"]["decay"], mesh=mesh)
+    gen = torch.Generator().manual_seed(0)
+    out = {"metrics": [], "ms": [], "peak_bytes": [], "launches": [],
+           "collectives": []}
+    train_state.allreduce_grads = timed_allreduce
+    try:
+        for _ in range(steps):
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            _cuda.reset_launches()
+            parallel.counts.clear()
+            t0 = time.perf_counter()
+            _, metrics = step(state, b, gen)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            torch.cuda.synchronize(device)
+            out["ms"].append((time.perf_counter() - t0) * 1e3)
+            out["metrics"].append(metrics)
+            out["peak_bytes"].append(torch.cuda.max_memory_allocated(device))
+            out["launches"].append({k: v for k, v in _cuda.launches.items()
+                                    if v})
+            out["collectives"].append(dict(parallel.counts))
+            for k, v in metrics.items():
+                if not math.isfinite(v):
+                    raise AssertionError(f"{config}: {k} = {v}")
+    finally:
+        train_state.allreduce_grads = allreduce
+    out["allreduce_ms"] = [ms for ms, _ in reduces]
+    out["allreduce_bytes"] = [n for _, n in reduces]
+    out["digest"] = params_digest(state.model)
+    out["rays_per_rank"] = int(parallel.seq_rays(
+        mesh, torch.empty(1, num_rays))[0].shape[1])
+    return out
+
+
+def dist_flagship_rank(device) -> dict:
+    from preworld_tpu_torch import parallel
+
+    return flagship_dist_steps(
+        device, FINETUNE_CONFIG, DIST_FLAGSHIP_BATCH, 512,
+        DIST_FLAGSHIP_STEPS, True, parallel.make_mesh(DIST_WORLD, 1))
+
+
+def seq_flagship_rank(device) -> dict:
+    from preworld_tpu_torch import parallel
+
+    return flagship_dist_steps(
+        device, PRETRAIN_CONFIG, 1, SEQ_FLAGSHIP_RAYS, SEQ_FLAGSHIP_STEPS,
+        True, parallel.make_mesh(1, DIST_WORLD))
+
+
+def check_dist_losses(name: str, ranks: list, want: list) -> dict:
+    """Every step's losses of rank 0 within TRAIN_TOL["loss_rel"] of the
+    one-process run's and its gradient norm within
+    TRAIN_TOL["grad_norm_rel"] (dist-reference's gates); every rank's
+    metrics and final parameters alike."""
+    got = ranks[0]["metrics"]
+    loss_rel = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(got, want)
+                   for k in w if k != "grad_norm")
+    norm_rel = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                   for g, w in zip(got, want))
+    same = all(r["digest"] == ranks[0]["digest"] and r["metrics"] == got
+               for r in ranks)
+    if loss_rel > TRAIN_TOL["loss_rel"] or not same or \
+            norm_rel > TRAIN_TOL["grad_norm_rel"] or \
+            [set(g) for g in got] != [set(w) for w in want]:
+        raise AssertionError(f"{name}: loss rel {loss_rel}, grad norm rel "
+                             f"{norm_rel}, ranks alike {same}")
+    return {"loss_rel": loss_rel, "grad_norm_rel": norm_rel}
+
+
+def dist_summary(ranks: list) -> dict:
+    """Rank 0's ms a step (the second on), peak bytes, all-reduce ms and
+    bytes, collectives and launches a step; the peak of each rank."""
+    r = ranks[0]
+    return {"step_ms": r["ms"], "step_ms_2_on": statistics.mean(r["ms"][1:]),
+            "peak_bytes_per_rank": [max(x["peak_bytes"]) for x in ranks],
+            "allreduce_ms": r["allreduce_ms"],
+            "allreduce_bytes": r["allreduce_bytes"][0],
+            "collectives_per_step": r["collectives"][-1],
+            "launches_per_step": r["launches"][-1],
+            "rays_per_rank": r["rays_per_rank"]}
+
+
+def run_dist(tmp: str) -> dict:
+    """dist-reference, dist-flagship and seq-flagship: the one-process
+    oracles on this process, then every layout's ranks (one launch each,
+    the phases' jobs in order). Returns {phase: {layout: result}} with the
+    failures of a phase raised when it is checked."""
+    oracle = {kind: dist_reference_oracle(kind) for kind in DIST_REFERENCE}
+    flagship = flagship_dist_steps("cuda", FINETUNE_CONFIG,
+                                   DIST_FLAGSHIP_BATCH, 512,
+                                   DIST_FLAGSHIP_STEPS, True)
+    torch.cuda.empty_cache()
+    dense = flagship_dist_steps("cuda", PRETRAIN_CONFIG, 1,
+                                SEQ_FLAGSHIP_RAYS, SEQ_FLAGSHIP_STEPS, True)
+    torch.cuda.empty_cache()
+    jobs = [(kind, "dist_reference_rank", {"kind": kind})
+            for kind in DIST_REFERENCE]
+    jobs += [("flagship", "dist_flagship_rank", {}),
+             ("seq", "seq_flagship_rank", {})]
+    runs = {}
+    for backend, per_card in dist_layouts():
+        name = layout_name(backend, per_card)
+        status("dist", f"layout: {name}")
+        t0 = time.perf_counter()
+        runs[name] = launch_dist_jobs(jobs, os.path.join(tmp, backend),
+                                      backend, per_card)
+        status("dist", f"{name}: ranks done in "
+               f"{time.perf_counter() - t0:.1f} s")
+    if len(runs) == 1:
+        status("dist", f"nccl: not run ({torch.cuda.device_count()} card)")
+    return {"oracle": oracle, "flagship": flagship, "dense": dense,
+            "runs": runs}
+
+
+def check_dist_reference_phase(d: dict) -> dict:
+    return {name: {kind: check_dist_reference(
+        d["oracle"][kind], [r[kind] for r in ranks], kind)
+        for kind in DIST_REFERENCE} for name, ranks in d["runs"].items()}
+
+
+def check_dist_flagship_phase(d: dict) -> dict:
+    """Launches of a remat finetune step in every rank (K1b / K2b 24 each),
+    the losses of the one-process run at batch 4, the summary."""
+    out = {"one_process_step_ms": d["flagship"]["ms"],
+           "one_process_peak_bytes": max(d["flagship"]["peak_bytes"])}
+    for name, ranks in d["runs"].items():
+        rs = [r["flagship"] for r in ranks]
+        bad = [(i, s) for r in rs for i, s in enumerate(r["launches"])
+               if s != {k: v for k, v in EXPECTED_PER_STEP_REMAT.items()
+                        if v}]
+        if bad:
+            raise AssertionError(f"dist-flagship {name}: launches {bad[0]}")
+        out[name] = dict(check_dist_losses(
+            f"dist-flagship {name}", rs, d["flagship"]["metrics"]),
+            **dist_summary(rs))
+    return out
+
+
+def check_seq_flagship_phase(d: dict) -> dict:
+    """Each rank renders half the rays; the six losses of the dense
+    one-process step; peak bytes beside the dense run's."""
+    out = {"dense_step_ms": d["dense"]["ms"],
+           "dense_peak_bytes": max(d["dense"]["peak_bytes"])}
+    for name, ranks in d["runs"].items():
+        rs = [r["seq"] for r in ranks]
+        if rs[0]["rays_per_rank"] != SEQ_FLAGSHIP_RAYS // DIST_WORLD or \
+                set(PRETRAIN_LOSSES) - set(rs[0]["metrics"][0]):
+            raise AssertionError(f"seq-flagship {name}: rays "
+                                 f"{rs[0]['rays_per_rank']}, metrics "
+                                 f"{sorted(rs[0]['metrics'][0])}")
+        out[name] = dict(check_dist_losses(
+            f"seq-flagship {name}", rs, d["dense"]["metrics"]),
+            **dist_summary(rs))
+    return out
+
+
+def run_cli_dist(tmp: str) -> dict:
+    """The train CLI under torchrun: 2 processes of the finetune config
+    (`--synthetic --epochs 1 --max-iters 2`), on cuda:0 over gloo (and, with
+    2 cards or more, one card each over NCCL): exit 0, one JSON line,
+    exactly one checkpoint; then `--auto-resume` for one more iteration."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for backend, per_card in dist_layouts():
+        name = layout_name(backend, per_card)
+        work = os.path.join(tmp, f"cli_dist_{backend}")
+        device = [] if per_card else ["--device", "cuda:0"]
+        runs = []
+        for extra in (["--max-iters", "2"],
+                      ["--max-iters", "1", "--auto-resume"]):
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--nproc_per_node", str(DIST_WORLD), "--master_port",
+                   str(free_port()), "-m", "preworld_tpu_torch.tools.train",
+                   FINETUNE_CONFIG, "--synthetic", "--epochs", "1",
+                   "--work-dir", work, "--dist-backend", backend,
+                   *device, *extra]
+            t0 = time.perf_counter()
+            p = subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True,
+                                 env=dict(os.environ,
+                                          GLOO_SOCKET_IFNAME="lo"))
+            (stdout, _), = wait_all([p], f"cli-dist {name}", CLI_TIMEOUT_S)
+            lines = [ln for ln in stdout.splitlines() if ln.startswith("{")]
+            if len(lines) != 1:
+                raise AssertionError(f"cli-dist {name}: JSON lines {lines}")
+            res = json.loads(lines[0])
+            res["seconds"] = time.perf_counter() - t0
+            status("cli-dist", f"{name}: {lines[0]}")
+            runs.append(res)
+            if len(runs) == 1:
+                first = sorted(os.listdir(os.path.join(work, "checkpoints")))
+                if first != ["2.pt"]:
+                    raise AssertionError(f"cli-dist {name}: checkpoints "
+                                         f"{first} after 2 iterations")
+        ckpts = sorted(os.listdir(os.path.join(work, "checkpoints")))
+        if [r["step"] for r in runs] != [2, 3] or \
+                ckpts != ["2.pt", "3.pt"] or not all(
+                    math.isfinite(v) for r in runs
+                    for v in r["metrics"].values()):
+            raise AssertionError(f"cli-dist {name}: steps "
+                                 f"{[r['step'] for r in runs]}, "
+                                 f"checkpoints {ckpts}")
+        out[name] = {"seconds": [r["seconds"] for r in runs],
+                     "metrics": runs[-1]["metrics"], "checkpoints": ckpts}
+    return out
+
+
 def sass_counts(lib_path: str) -> dict:
     """Per instance of the Hopper GEMMs (`gemm_sm90_kernel<prologue,
     epilogue, tile width, W as stored>`, `gemm_dw_sm90_kernel<prologue>`)
@@ -3116,6 +3674,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs only on the card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--dist-worker"]:
+        return dist_worker(sys.argv[2])
     t_start = time.perf_counter()
     from preworld_tpu_torch.ops import _cuda
 
@@ -3367,6 +3927,24 @@ def main() -> int:
                  lambda: run_pretrain_loop_flagship(tree, tmp)),
                 ("cli", lambda: run_cli(tmp))):
             runs[name] = phase(name, fn)
+            if runs[name] is not None:
+                status(name, "ok " + json.dumps(runs[name]))
+            torch.cuda.empty_cache()
+        # training across processes: the oracles here, then the ranks
+        dist = phase("dist", lambda: run_dist(os.path.join(tmp, "dist")))
+        torch.cuda.empty_cache()
+        for name, fn in (("dist-reference", check_dist_reference_phase),
+                         ("dist-flagship", check_dist_flagship_phase),
+                         ("seq-flagship", check_seq_flagship_phase),
+                         ("cli-dist", None)):
+            if fn is None:
+                runs[name] = phase(name, lambda: run_cli_dist(tmp))
+            elif dist is None:
+                status(name, "FAILED (the dist launch failed)")
+                failures.append(name)
+                continue
+            else:
+                runs[name] = phase(name, lambda fn=fn: fn(dist))
             if runs[name] is not None:
                 status(name, "ok " + json.dumps(runs[name]))
             torch.cuda.empty_cache()

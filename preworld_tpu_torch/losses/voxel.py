@@ -6,6 +6,15 @@ compacted away. Logits are channel-last (B, X, Y, Z, C) float; targets
 (B, X, Y, Z) integer. Also the class-weight tables of
 `preworld_tpu/models/nerf_head.py` (`nusc_class_weights`,
 `voxel_class_weights`).
+
+Under an active mesh (`parallel.use_mesh`) each loss is of the global
+batch, whose rows the data group's ranks hold (the JAX losses under jit on
+a batch sharded over 'data'): the statistics that span the batch (a
+normaliser, the scal losses' per-class sums, Lovasz's one sort over every
+voxel) are summed or gathered over the data group with gradient, and the
+value is returned at `replica_share()`, so that the ranks' values add up
+to it (`parallel` invariant 1). Without a mesh each is the single-process
+function.
 """
 
 from __future__ import annotations
@@ -15,6 +24,9 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..parallel.collectives import batch_sums, gather_rows, replica_share
+from ..parallel.mesh import current_mesh
 
 # occ3d-nuscenes class frequencies (`preworld_tpu/models/nerf_head.py`)
 NUSC_CLASS_FREQUENCIES = np.array(
@@ -65,7 +77,8 @@ def ce_ssc_loss(logits, target, class_weights, ignore_index: int = 255):
     logp = F.log_softmax(logits, dim=-1)
     ce = -logp.gather(-1, t[..., None])[..., 0]
     w = class_weights[t] * m
-    return (ce * w).sum() / w.sum().clamp_min(1e-8)
+    num, den = batch_sums((ce * w).sum(), w.sum())
+    return num / den.clamp_min(1e-8) * replica_share()
 
 
 def _bce_of_ratio(r):
@@ -79,27 +92,30 @@ def sem_scal_loss(logits, target, ignore_index: int = 255,
     C = logits.shape[-1]
     p = torch.softmax(logits, dim=-1)
     m = _valid_mask(target, ignore_index, camera_mask)
-    loss = logits.new_zeros(())
-    count = logits.new_zeros(())
+    sums = []
     for c in range(C):
         pc = p[..., c] * m
         is_c = (target == c).float()
         fg = is_c * m
-        n_fg = fg.sum()
+        sums.append(torch.stack([
+            fg.sum(), (pc * fg).sum(), pc.sum(), (m * (1.0 - is_c)).sum(),
+            ((1.0 - pc) * (1.0 - is_c) * m).sum()]))
+    sums, = batch_sums(torch.stack(sums))
+    loss = logits.new_zeros(())
+    count = logits.new_zeros(())
+    for c in range(C):
+        n_fg, nominator, sum_p, n_bg, spec_num = sums[c]
         present = (n_fg > 0).float()
-        nominator = (pc * fg).sum()
-        sum_p = pc.sum()
-        n_bg = (m * (1.0 - is_c)).sum()
         precision = nominator / sum_p.clamp_min(1e-12)
         recall = nominator / n_fg.clamp_min(1e-12)
-        spec = ((1.0 - pc) * (1.0 - is_c) * m).sum() / n_bg.clamp_min(1e-12)
+        spec = spec_num / n_bg.clamp_min(1e-12)
         zero = logits.new_zeros(())
         loss_c = (torch.where(sum_p > 0, _bce_of_ratio(precision), zero)
                   + _bce_of_ratio(recall)
                   + torch.where(n_bg > 0, _bce_of_ratio(spec), zero))
         loss = loss + present * loss_c
         count = count + present
-    return loss / count.clamp_min(1.0)
+    return loss / count.clamp_min(1.0) * replica_share()
 
 
 def geo_scal_loss(logits, target, ignore_index: int = 255,
@@ -114,13 +130,14 @@ def geo_scal_loss(logits, target, ignore_index: int = 255,
     mask = (target != non_empty_idx).float()
     if camera_mask is not None:
         mask = mask * camera_mask.float()
-    intersection = (mask * nonempty_probs).sum()
-    precision = intersection / nonempty_probs.sum().clamp_min(1e-12)
-    recall = intersection / mask.sum().clamp_min(1e-12)
-    spec = ((1.0 - mask) * empty_probs).sum() / (1.0 - mask).sum().clamp_min(
-        1e-12)
-    return _bce_of_ratio(precision) + _bce_of_ratio(recall) + \
-        _bce_of_ratio(spec)
+    intersection, sum_p, n_fg, spec_num, n_bg = batch_sums(
+        (mask * nonempty_probs).sum(), nonempty_probs.sum(), mask.sum(),
+        ((1.0 - mask) * empty_probs).sum(), (1.0 - mask).sum())
+    precision = intersection / sum_p.clamp_min(1e-12)
+    recall = intersection / n_fg.clamp_min(1e-12)
+    spec = spec_num / n_bg.clamp_min(1e-12)
+    return (_bce_of_ratio(precision) + _bce_of_ratio(recall)
+            + _bce_of_ratio(spec)) * replica_share()
 
 
 def _lovasz_grad(gt_sorted):
@@ -138,7 +155,9 @@ def lovasz_softmax_loss(logits, target, ignore_index: int = 17,
                         from_probs: bool = False):
     """Multi-class Lovasz-softmax, classes='present', per_image=False.
     Ignored voxels get zero error and fg = 0, so they sort to the tail and
-    add nothing. All classes are sorted at once, one row each."""
+    add nothing. All classes are sorted at once, one row each; under a
+    mesh, over the voxels of the global batch, gathered from the data
+    group (each rank's gradient is its own voxels' rows)."""
     C = logits.shape[-1]
     probs = logits if from_probs else torch.softmax(logits, dim=-1)
     probs = probs.reshape(-1, C)
@@ -146,6 +165,12 @@ def lovasz_softmax_loss(logits, target, ignore_index: int = 17,
     valid = t != ignore_index
     if camera_mask is not None:
         valid = valid & camera_mask.reshape(-1).bool()
+    mesh = current_mesh()
+    if mesh is not None and mesh.data_group is not None:
+        at = (mesh.data_group, mesh.data_rank, mesh.n_data)
+        probs = gather_rows(probs, *at)
+        tv = gather_rows(torch.stack([t.float(), valid.float()], 1), *at)
+        t, valid = tv[:, 0].long(), tv[:, 1] > 0
     vf = valid.float()
     classes = torch.arange(C, device=t.device)
     fg = (t[None, :] == classes[:, None]).float() * vf        # (C, P)
@@ -154,7 +179,7 @@ def lovasz_softmax_loss(logits, target, ignore_index: int = 17,
     fg_s = fg.gather(-1, order)
     present = (fg.sum(-1) > 0).float()
     losses = present * (err_s * _lovasz_grad(fg_s)).sum(-1)
-    return losses.sum() / present.sum().clamp_min(1.0)
+    return losses.sum() / present.sum().clamp_min(1.0) * replica_share()
 
 
 def distance_weighted_focal_loss(logits, target, class_weights,
@@ -181,4 +206,5 @@ def distance_weighted_focal_loss(logits, target, class_weights,
         torch.exp(-logits.abs()))
     per_elem = bce * focal_w * class_weights
     per_vox = per_elem.sum(-1) * dist * m
-    return loss_weight * per_vox.sum() / m.sum().clamp_min(1.0)
+    num, den = batch_sums(per_vox.sum(), m.sum())
+    return loss_weight * num / den.clamp_min(1.0) * replica_share()

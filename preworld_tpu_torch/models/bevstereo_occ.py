@@ -4,6 +4,7 @@ Counterpart of `preworld_tpu/models/bevstereo_occ.py`: PreWorld's feature
 extractor, then `final_conv` -> the `predicter` MLP (f32) -> 18 class
 logits; the loss is the mean cross-entropy of their log-softmax plus the
 LSS depth BCE (weight `cfg.depth_loss_weight`), and inference their argmax.
+Under a mesh both losses are this rank's shares of the global batch's.
 """
 
 from __future__ import annotations
@@ -12,9 +13,19 @@ from typing import Dict
 
 import torch
 
+from ..parallel.collectives import batch_sums, replica_share
 from .layers import MlpSequence
 from .preworld import PreWorld, PreWorldConfig
 from .view_transformer import depth_bce_loss
+
+
+def occ_ce_loss(logits, target):
+    """Mean cross-entropy over every voxel; under a mesh, over the global
+    batch's, at `replica_share()`."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ce = -logp.gather(-1, target[..., None])[..., 0]
+    total, n = batch_sums(ce.sum(), ce.new_tensor(float(ce.numel())))
+    return total / n * replica_share()
 
 
 class BEVStereoOCC(PreWorld):
@@ -39,10 +50,8 @@ class BEVStereoOCC(PreWorld):
         c = self.cfg
         logits, depth = self.occ_logits(batch, train=True,
                                         generator=generator)
-        target = batch["voxel_semantics"].long()
-        logp = torch.log_softmax(logits, dim=-1)
-        ce = -logp.gather(-1, target[..., None])[..., 0]
-        return {"loss_occ": ce.mean(),
+        return {"loss_occ": occ_ce_loss(logits,
+                                        batch["voxel_semantics"].long()),
                 "loss_depth": depth_bce_loss(
                     depth, batch["gt_depth"],
                     self.view_transformer.downsample, c.grid,

@@ -15,7 +15,12 @@ normalises with the batch statistics and folds the BIASED batch variance
 into `running_var` (flax `nn.BatchNorm`, momentum 0.9 = torch momentum
 0.1); torch's own folds the unbiased one. Inside a recompute of
 `torch.utils.checkpoint` (`recompute_context`) the running statistics are
-not folded again.
+not folded again. Under an active mesh (`parallel.use_mesh`) with more than
+one data rank, train mode takes the moments of the global batch, as flax's
+BatchNorm does under jit on a batch sharded over 'data': one differentiable
+all_reduce of the per-channel sum, sum of squares and count over the data
+group, the biased variance E[x^2] - E[x]^2 (flax's), and the running update
+from those moments.
 """
 
 from __future__ import annotations
@@ -26,6 +31,9 @@ from typing import Callable, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel.collectives import all_reduce
+from ..parallel.mesh import current_mesh
 
 IntOrTuple = Union[int, Tuple[int, ...]]
 
@@ -79,6 +87,9 @@ class _FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
             return F.batch_norm(x, _at(self.running_mean, x),
                                 _at(self.running_var, x), w, b, False, 0.0,
                                 self.eps)
+        mesh = current_mesh()
+        if mesh is not None and mesh.data_group is not None:
+            return self._synced(x, mesh.data_group)
         if not _RECOMPUTING[0]:
             with torch.no_grad():
                 dims = [d for d in range(x.dim()) if d != 1]
@@ -87,6 +98,28 @@ class _FlaxBatchNorm(nn.modules.batchnorm._BatchNorm):
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)
         return F.batch_norm(x, None, None, w, b, True, 0.0, self.eps)
+
+    def _synced(self, x, group):
+        """Train mode on the moments of the global batch: `group`'s ranks
+        hold its rows."""
+        dims = [d for d in range(x.dim()) if d != 1]
+        C = x.shape[1]
+        # f32 sums without an f32 copy of x kept for the backward
+        s1 = torch.sum(x, dims, dtype=torch.float32)
+        s2 = torch.linalg.vector_norm(x, 2, dims, dtype=torch.float32) ** 2
+        n = torch.full((1,), x.numel() // C, dtype=torch.float32,
+                       device=x.device)
+        stats = all_reduce(torch.cat([s1, s2, n]), group, "batchnorm")
+        mean = stats[:C] / stats[-1]
+        var = (stats[C:2 * C] / stats[-1] - mean * mean).clamp_min(0.0)
+        if not _RECOMPUTING[0]:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+        scale = self.weight.float() * torch.rsqrt(var + self.eps)
+        shift = self.bias.float() - mean * scale
+        shape = [1, C] + [1] * (x.dim() - 2)
+        return (x * scale.view(shape) + shift.view(shape)).to(x.dtype)
 
 
 class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):

@@ -1,8 +1,8 @@
 """Volume-rendering supervision head (parameter-free renderer + losses).
 
 Counterpart of `preworld_tpu/models/nerf_head.py`: `NerfHeadConfig`,
-`nusc_class_weights`, `render_scene`, `_weighted_ce`, `_silog` and
-`nerf_head_losses`. Rays arrive as a fixed-size (R, 16) array
+`nusc_class_weights`, `render_scene`, `_weighted_ce` (here its sums),
+`_silog` and `nerf_head_losses`. Rays arrive as a fixed-size (R, 16) array
 (`geometry.rays`); the reference's dynamic compactions are masks, and its
 `fast_color_thres` cutoffs zero alpha and weights below the threshold.
 
@@ -12,7 +12,16 @@ align_corners=True, zeros padding) at the normalised points flipped to
 (z, y, x): the semantics of the JAX package's oracle `_sample_field`. The
 JAX corner-table gather (`ops/field_sample.py`) and its two tuning fields
 `table_dtype` and `bwd_live_cap` are TPU layouts of the same exact
-function and are not carried over; nor is the ray split over a device mesh.
+function and are not carried over.
+
+Under an active mesh (`parallel.use_mesh`), as the JAX `_render_batch`
+under `shard_map`: each rank renders its scenes (its rows of the batch)
+and, when the ray count divides `n_seq`, its slice of their rays
+(`parallel.seq_rays`). The scene-wide sums then go over the seq group with
+gradient: the distortion's four sums inside `render_scene` (the JAX
+`psum`), the masked means' numerators and denominators in
+`nerf_head_losses`. The mean over scenes takes the global batch, at
+`replica_share()`, so that the ranks' loss dicts add up to the global one.
 `F.grid_sample`'s backward adds into the field with atomics, so gradients
 differ from run to run in the last bits.
 
@@ -35,6 +44,8 @@ import torch.nn.functional as F
 
 from ..geometry import rays as ray_layout
 from ..losses.voxel import nusc_class_weights
+from ..parallel.collectives import all_reduce, replica_share
+from ..parallel.mesh import current_mesh, seq_rays
 from ..ops.render import (
     RaySamplingSpec,
     alpha2weight,
@@ -66,13 +77,16 @@ class NerfHeadConfig:
 
 
 def render_scene(density, semantic, color, rays_o, rays_d, bda,
-                 cfg: NerfHeadConfig, ray_mask=None) -> Dict[str, torch.Tensor]:
+                 cfg: NerfHeadConfig, ray_mask=None,
+                 group=None) -> Dict[str, torch.Tensor]:
     """Render depth, semantic and colour for R rays against one voxel
     scene: density (X, Y, Z), semantic (X, Y, Z, n), color (X, Y, Z, 3)
     f32; rays_o, rays_d (R, 3); bda (3, 3); ray_mask (R,) f32 or None.
     Returns render_depth (R,), render_semantic (R, n), render_color (R, 3),
     alphainv_last (R,) and the scalar loss_distortion (reduced over the
-    masked rays)."""
+    masked rays). `group`: the process group the scene's rays are split
+    over (the JAX `axis_name`); the distortion's sums are then summed over
+    it, so that each rank's value is the whole scene's."""
     R = rays_o.shape[0]
     chunk = min(cfg.ray_chunk, R) if cfg.ray_chunk > 0 else R
     if R % chunk:  # one pass for sizes the chunk does not divide
@@ -89,10 +103,13 @@ def render_scene(density, semantic, color, rays_o, rays_d, bda,
     # distortion (flatten_eff_distloss): interval 1 / n_max with n_max the
     # surviving supervised samples scene-wide, normalised by the number of
     # supervised rays
-    n_max = out.pop("dist_live").clamp_min(1.0)
-    n_rays = ray_mask.sum().clamp_min(1.0)
-    out["loss_distortion"] = (2.0 * out.pop("dist_bi")
-                              + (1.0 / 3.0) / n_max * out.pop("dist_w2")) / n_rays
+    sums = all_reduce(torch.stack([
+        out.pop("dist_live"), out.pop("dist_bi"), out.pop("dist_w2"),
+        ray_mask.sum()]), group, "render")
+    n_max = sums[0].clamp_min(1.0)
+    n_rays = sums[3].clamp_min(1.0)
+    out["loss_distortion"] = (2.0 * sums[1]
+                              + (1.0 / 3.0) / n_max * sums[2]) / n_rays
     return out
 
 
@@ -206,23 +223,29 @@ def _composite(dens, values, keep, t, ray_mask, cfg):
     }, weights
 
 
-def _weighted_ce(logits, targets, class_w, mask):
-    """torch CrossEntropyLoss(weight=w, reduction='mean') with a ray mask:
-    sum(w[t] * ce) / sum(w[t]) over masked rays. Labels are clipped before
-    the gather: masked rays may carry out-of-range labels."""
+def _weighted_ce_sums(logits, targets, class_w, mask):
+    """(sum of w[t] * ce, sum of w[t]) over the masked rays: the terms of
+    torch CrossEntropyLoss(weight=w, reduction='mean'). Labels are clipped
+    before the gather: masked rays may carry out-of-range labels."""
     logp = torch.log_softmax(logits, dim=-1)
     t = targets.long().clamp(0, class_w.shape[0] - 1)
     ce = -torch.gather(logp, 1, t[:, None])[:, 0]
     w = class_w[t] * mask
-    return (ce * w).sum() / w.sum().clamp_min(1e-8)
+    return (ce * w).sum(), w.sum()
 
 
-def _silog(est, gt, mask, variance_focus: float):
-    """Scale-invariant log depth loss, masked."""
+def _silog_sums(est, gt, mask):
+    """(sum of d^2, sum of d, count) of the masked log-depth differences d,
+    the terms of the scale-invariant log depth loss."""
     d = (torch.log(est) - torch.log(gt.clamp_min(1e-8))) * mask
-    n = mask.sum().clamp_min(1.0)
-    mean_sq = (d * d).sum() / n
-    mean = d.sum() / n
+    return (d * d).sum(), d.sum(), mask.sum()
+
+
+def _silog(sq, lin, count, variance_focus: float):
+    """Scale-invariant log depth loss from `_silog_sums`."""
+    n = count.clamp_min(1.0)
+    mean_sq = sq / n
+    mean = lin / n
     return torch.sqrt((mean_sq - variance_focus * mean * mean).clamp_min(1e-12))
 
 
@@ -232,7 +255,10 @@ def nerf_head_losses(density, semantic, color, rays, bda,
     semantic (B, X, Y, Z, 17), color (B, X, Y, Z, 3); rays (B, R, 16)
     (`geometry.rays` layout); bda (B, 3, 3). Keys: loss_render_depth (with
     `use_depth_sup`), loss_render_semantic, loss_render_color,
-    loss_sdf_entropy and loss_sdf_distortion (at weights above 0)."""
+    loss_sdf_entropy and loss_sdf_distortion (at weights above 0). Each
+    per-scene loss is a masked mean over the scene's rays, formed from its
+    sums (over the seq group under a mesh that splits the rays)."""
+    rays, group = seq_rays(current_mesh(), rays)
     gt_depth = rays[..., ray_layout.DEPTH]
     gt_depth = torch.where(gt_depth > cfg.max_depth,
                            torch.zeros_like(gt_depth), gt_depth)
@@ -250,27 +276,38 @@ def nerf_head_losses(density, semantic, color, rays, bda,
         out = render_scene(density[i], semantic[i], color[i],
                            rays[i, :, ray_layout.ORIGIN],
                            rays[i, :, ray_layout.DIRECTION], bda[i], cfg,
-                           ray_mask[i])
+                           ray_mask[i], group)
         m = ray_mask[i]
-        n = m.sum().clamp_min(1.0)
-        losses = {}
-        if cfg.use_depth_sup:
-            losses["loss_render_depth"] = cfg.weight_depth * _silog(
-                out["render_depth"] + 1e-7, gt_depth[i], m, cfg.variance_focus)
-        losses["loss_render_semantic"] = cfg.weight_semantic * _weighted_ce(
-            out["render_semantic"], gt_sem[i], class_w, m)
-        # l1 colour: the sum over channels of the masked mean
-        diff = (out["render_color"] - gt_color[i]).abs() * m[:, None]
-        losses["loss_render_color"] = cfg.weight_color * (
-            diff.sum(dim=0) / n).sum()
+        sums = [*_silog_sums(out["render_depth"] + 1e-7, gt_depth[i], m),
+                *_weighted_ce_sums(out["render_semantic"], gt_sem[i],
+                                   class_w, m),
+                # l1 colour: the sum over channels of the masked mean
+                ((out["render_color"] - gt_color[i]).abs()
+                 * m[:, None]).sum(dim=0)]
         if cfg.weight_entropy_last > 0:
             pout = out["alphainv_last"].clamp(1e-6, 1 - 1e-6)
             ent = -(pout * torch.log(pout) + (1 - pout) * torch.log(1 - pout))
+            sums.append((ent * m).sum())
+        if group is not None:
+            flat = all_reduce(torch.cat([v.reshape(-1) for v in sums]),
+                              group, "render")
+            sums = [*flat[:5], flat[5:8], *flat[8:]]
+        sq, lin, count, ce_w, w_sum, color_sum = sums[:6]
+        n = count.clamp_min(1.0)
+        losses = {}
+        if cfg.use_depth_sup:
+            losses["loss_render_depth"] = cfg.weight_depth * _silog(
+                sq, lin, count, cfg.variance_focus)
+        losses["loss_render_semantic"] = cfg.weight_semantic * (
+            ce_w / w_sum.clamp_min(1e-8))
+        losses["loss_render_color"] = cfg.weight_color * (
+            color_sum / n).sum()
+        if cfg.weight_entropy_last > 0:
             losses["loss_sdf_entropy"] = cfg.weight_entropy_last * (
-                (ent * m).sum() / n)
+                sums[6] / n)
         if cfg.weight_distortion > 0:
             losses["loss_sdf_distortion"] = (cfg.weight_distortion
                                              * out["loss_distortion"])
         for k, v in losses.items():
             acc[k] = acc.get(k, 0.0) + v
-    return {k: v / B for k, v in acc.items()}
+    return {k: v / B * replica_share() for k, v in acc.items()}

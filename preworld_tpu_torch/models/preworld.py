@@ -24,7 +24,9 @@ reference frame and the adjacent frame run under `torch.no_grad()` (the JAX
 package's `stop_gradient`), their BatchNorms still on batch statistics and
 folding them in the JAX call order; the stereo cost volume is computed
 without gradient. Stochastic depth masks and the depth net's ASPP dropout
-masks come from the caller's `torch.Generator`, drawn on the host. With
+masks come from the caller's `torch.Generator`, drawn on the host; under a
+mesh (`parallel.use_mesh`) each rank draws the global batch's masks and
+keeps its rows, and the losses are its shares of the global batch's. With
 `cfg.remat`, `torch.utils.checkpoint` recomputes the image backbone, the
 view transformer and the two 3-D ResNets in the backward, the segments of
 the JAX package's `nn.remat`.
@@ -59,6 +61,7 @@ from ..losses.voxel import (
     sem_scal_loss,
     voxel_class_weights,
 )
+from ..parallel.mesh import draw_rows
 from .fpn import FPN_LSS, LSSFPN3D
 from .layers import ConvNormAct, MlpSequence, recompute_context
 from .nerf_head import NerfHeadConfig, nerf_head_losses
@@ -223,16 +226,18 @@ class PreWorld(nn.Module):
 
     def _aspp_dropout(self, B, N, generator):
         """The depth net's ASPP dropout mask, scaled by 1 / keep, drawn on
-        the host; None when not training or at rate 0."""
+        the host (under a mesh, this rank's rows of the global batch's
+        draw); None when not training or at rate 0."""
         aspp = self.view_transformer.depth_net.aspp
         if generator is None or aspp.dropout_rate == 0.0:
             return None
         c = self.cfg
         keep = 1.0 - aspp.dropout_rate
-        shape = (B * N, c.input_size[0] // self.view_transformer.downsample,
+        shape = (c.input_size[0] // self.view_transformer.downsample,
                  c.input_size[1] // self.view_transformer.downsample,
                  c.neck_out_channels)
-        return (torch.rand(shape, generator=generator) < keep).float() / keep
+        return draw_rows(lambda n: (torch.rand(
+            (n, *shape), generator=generator) < keep).float() / keep, B * N)
 
     def extract_voxel_feat(self, batch: Dict[str, torch.Tensor],
                            train: bool = False,

@@ -21,7 +21,9 @@ Training: the OccHead runs once for the key frame and once per future step,
 so in train mode its BatchNorm folds num_future + 1 batch statistics into
 its running ones, in that order. With `cfg.remat` each future step (rollout
 and losses) runs under `torch.utils.checkpoint`, the JAX package's `nn.remat`
-of `_future_step_losses`; the recompute folds no statistics again.
+of `_future_step_losses`; the recompute folds no statistics again. Under a
+mesh every loss, `l2_traj_loss` among them, is this rank's share of the
+global batch's (`parallel` invariant 1).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.collectives import batch_sums, replica_share
 from .layers import Linear, MlpSequence
 from .nerf_head import nerf_head_losses
 from .occ_head import DownScale3D
@@ -79,8 +82,11 @@ def rollout_curriculum(epoch: int, if_render: bool) -> int:
 
 
 def l2_traj_loss(pred, gt):
-    """Sum over the coordinates of the batch-mean squared error."""
-    return ((pred - gt) ** 2).mean(dim=0).sum()
+    """Sum over the coordinates of the batch-mean squared error; under a
+    mesh, of the global batch, at `replica_share()`."""
+    sq, n = batch_sums(((pred - gt) ** 2).sum(dim=0),
+                       pred.new_tensor(float(pred.shape[0])))
+    return (sq / n).sum() * replica_share()
 
 
 class PreWorld4DTraj(PreWorld):

@@ -43,6 +43,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.mesh import draw_rows
 from ..ops.swin_block_pallas import fused_swin_attn_block, region_mask
 from ..ops.swin_mlp_pallas import fused_swin_mlp
 from ..ops.window_attn_pallas import (
@@ -308,7 +309,8 @@ class SwinTransformer(nn.Module):
                          stage0_only: bool = False):
         """Per-block (attention, MLP) stochastic-depth scales (B,) f32 on
         the host, drawn from `generator` block by block (attention first);
-        None for a block whose rate is 0."""
+        None for a block whose rate is 0. Under a mesh, this rank's rows of
+        the global batch's draws (`parallel.draw_rows`)."""
         rates = np.linspace(0, self.drop_path_rate, sum(self.depths))
         if stage0_only:
             rates = rates[:self.depths[0]]
@@ -318,8 +320,8 @@ class SwinTransformer(nn.Module):
                 out.append(None)
                 continue
             keep = 1.0 - float(rate)
-            out.append(tuple(
-                (torch.rand(batch, generator=generator) < keep).float() / keep
+            out.append(tuple(draw_rows(lambda n: (torch.rand(
+                n, generator=generator) < keep).float() / keep, batch)
                 for _ in range(2)))
         return out
 

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..geometry.frustum import GridConfig, frustum_pixel_indices
+from ..parallel.collectives import batch_sums, replica_share
 from ..ops.bev_pool_pallas import bev_pool_fused
 from ..ops.cost_volume_pallas import (
     plane_sweep_cost_hom,
@@ -164,12 +165,14 @@ def depth_bce_loss(depth_pred, gt_depths, downsample: int, grid: GridConfig,
     """BEVDepth BCE depth supervision: depth_pred (B, N, D, Hf, Wf)
     softmaxed, gt_depths (B, N, H, W) sparse metric depth (0 = missing).
     Computed in f32: in bf16 the upper clamp 1 - 1e-7 rounds to 1, and a
-    confident bin on its own label would give 0 * log(0) = NaN."""
+    confident bin on its own label would give 0 * log(0) = NaN. Under a
+    mesh, the mean over the global batch's foreground pixels, at
+    `replica_share()` (`losses/voxel.py`)."""
     D = grid.num_depth_bins
     labels = downsampled_gt_depth(gt_depths, downsample, grid)
     preds = depth_pred.float().permute(0, 1, 3, 4, 2).reshape(-1, D)
     fg = labels.amax(dim=1) > 0.0
     preds = preds.clamp(1e-7, 1.0 - 1e-7)
     bce = -(labels * torch.log(preds) + (1 - labels) * torch.log(1 - preds))
-    bce = (bce.sum(dim=1) * fg).sum()
-    return weight * bce / fg.sum().float().clamp_min(1.0)
+    bce, n_fg = batch_sums((bce.sum(dim=1) * fg).sum(), fg.sum().float())
+    return weight * bce / n_fg.clamp_min(1.0) * replica_share()

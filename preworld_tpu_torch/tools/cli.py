@@ -11,18 +11,28 @@ import torch
 
 
 def add_device_arg(p: argparse.ArgumentParser) -> None:
-    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
-                   help="where the model runs: the card (default; no card "
-                        "is an error) or the CPU")
+    p.add_argument("--device", default="cuda",
+                   help="where the model runs: the card (cuda, or cuda:N "
+                        "for card N; default; no card is an error) or the "
+                        "CPU (cpu)")
 
 
 def resolve_device(name: str) -> torch.device:
-    """The device of `--device`; raises for the card when there is none
-    (there is no fallback to the CPU)."""
-    if name == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: this entry point runs on the "
-                           "card; pass --device cpu to run on the CPU")
-    return torch.device(name)
+    """The device of `--device` (cuda, cuda:N or cpu); raises for a card
+    that is not there (there is no fallback to the CPU or to another
+    card)."""
+    device = torch.device(name)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"--device {name}: expected cuda, cuda:N or cpu")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: this entry point runs on the "
+                               "card; pass --device cpu to run on the CPU")
+        if device.index is not None and \
+                device.index >= torch.cuda.device_count():
+            raise RuntimeError(f"no CUDA device {name}: "
+                               f"{torch.cuda.device_count()} card(s)")
+    return device
 
 
 def synthetic_sample(cfg, seed: int, num_rays: int, with_labels: bool = True,

@@ -14,11 +14,24 @@ samples, no dataset files), `--max-iters` (iterations per epoch),
 `--epochs`, `--profile-dir` (a torch.profiler trace of iterations 8-11)
 and `--cfg-options`. The model runs on the card unless `--device cpu`.
 
-One card: the batch is the config's `samples_per_gpu`. `PreWorld4DTraj`
-trains along the rollout curriculum, `num_future` from the epoch
-(`rollout_curriculum`). Prints one JSON line (the work dir, the step, the
-last checkpoint and the last iteration's metrics) and returns it as a
-dict.
+Several processes (`parallel`): under `torchrun` (WORLD_SIZE > 1) each
+process joins the process group (`--dist-backend`, nccl on the card and
+gloo on the CPU by default) and the mesh of `parallel.n_seq` (config key,
+default 1) by world / n_seq. A process runs on `cuda:$LOCAL_RANK` unless
+`--device` names the card (`cuda:N`; two processes may share one card over
+gloo) or the CPU; a LOCAL_RANK with no card is an error. The global batch
+is `samples_per_gpu` x n_data; each process loads its data rank's rows.
+Rank 0's weights are copied to every rank before training; rank 0 alone
+writes the checkpoints, metrics.jsonl and the JSON line.
+
+`PreWorld4DTraj` trains along the rollout curriculum, `num_future` from
+the epoch (`rollout_curriculum`). Prints one JSON line (the work dir, the
+step, the last checkpoint and the last iteration's metrics, those of the
+global batch) and returns it as a dict.
+
+    torchrun --nproc_per_node 2 -m preworld_tpu_torch.tools.train CONFIG \
+        --synthetic --device cuda:0 --dist-backend gloo   # one card
+    torchrun --nproc_per_node 4 -m preworld_tpu_torch.tools.train CONFIG
 """
 
 from __future__ import annotations
@@ -32,6 +45,7 @@ import pickle
 
 import torch
 
+from ..parallel import broadcast_module, init_from_env, make_mesh
 from .cli import SyntheticDataset, add_device_arg, resolve_device
 
 
@@ -50,8 +64,19 @@ def parse_args(argv=None):
     p.add_argument("--profile-dir", default=None)
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--cfg-options", nargs="+", default=[])
+    p.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                   help="process group backend under torchrun (default: "
+                        "nccl on the card, gloo on the CPU)")
     add_device_arg(p)
     return p.parse_args(argv)
+
+
+def process_device(name: str) -> torch.device:
+    """`--device` for this process: under torchrun a bare `cuda` is the
+    card of LOCAL_RANK (an error when there is none)."""
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1 and name == "cuda":
+        name = f"cuda:{os.environ.get('LOCAL_RANK', os.environ['RANK'])}"
+    return resolve_device(name)
 
 
 def _datasets(cfg, model_cfg, args, is_traj):
@@ -95,10 +120,18 @@ def _datasets(cfg, model_cfg, args, is_traj):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(name)s %(message)s")
-    device = resolve_device(args.device)
+    device = process_device(args.device)
+    backend = args.dist_backend or ("nccl" if device.type == "cuda"
+                                    else "gloo")
+    joined = init_from_env(device, backend)
+    try:
+        return _train(args, device)
+    finally:
+        if joined:
+            torch.distributed.destroy_process_group()
 
+
+def _train(args, device) -> dict:
     from ..data import DataLoader
     from ..models import PreWorld4DTraj, rollout_curriculum
     from ..train import (
@@ -111,12 +144,17 @@ def main(argv=None) -> dict:
         make_train_step,
         maybe_resume,
         model_predict_fn,
+        rank_padded_indices,
         train_epochs,
     )
     from ..utils import Config
     from ..utils.torch_port import overlay_flax_params
 
     cfg = Config.fromfile(args.config).merge_from_options(args.cfg_options)
+    mesh = make_mesh(n_seq=int(cfg.get("parallel", {}).get("n_seq", 1)))
+    logging.basicConfig(
+        level=logging.INFO if mesh.rank == 0 else logging.WARNING,
+        format="%(asctime)s %(name)s %(message)s")
     work_dir = args.work_dir or os.path.join(
         "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
     torch.manual_seed(args.seed)
@@ -131,6 +169,7 @@ def main(argv=None) -> dict:
             model, ported["params"], ported.get("batch_stats"))
         logging.info("warm-started %d tensors from %s (%d with no port "
                      "tensor)", len(loaded), load_from, len(unexpected))
+    broadcast_module(model)
 
     opt, lr = cfg.get("optimizer", {}), cfg.get("lr_config", {})
     clip = cfg.get("optimizer_config", {}).get("grad_clip", {})
@@ -142,16 +181,19 @@ def main(argv=None) -> dict:
         warmup_iters=int(lr.get("warmup_iters", 200))),
         int(ema.get("init_updates", 0)))
     if args.auto_resume or args.resume_from:
-        state, resumed = maybe_resume(state, work_dir, args.resume_from)
+        state, resumed = maybe_resume(state, work_dir, args.resume_from,
+                                      mesh)
         if resumed:
             logging.info("resumed from checkpoint at step %d", state.step)
 
     dataset, val_samples = _datasets(cfg, model.cfg, args, is_traj)
     data_cfg = cfg.get("data", {})
     loader = DataLoader(dataset,
-                        batch_size=int(data_cfg.get("samples_per_gpu", 1)),
+                        batch_size=int(data_cfg.get("samples_per_gpu", 1))
+                        * mesh.n_data,
                         num_workers=int(data_cfg.get("workers_per_gpu", 2)) * 2,
-                        seed=args.seed)
+                        seed=args.seed, process_index=mesh.data_rank,
+                        process_count=mesh.n_data)
 
     ema_decay = float(ema.get("decay", 0.999))
     last = {}
@@ -167,12 +209,13 @@ def main(argv=None) -> dict:
     if is_traj:
         @functools.lru_cache(maxsize=8)
         def step_for(num_future):
-            return recorded(make_train_step(ema_decay, num_future=num_future))
+            return recorded(make_train_step(ema_decay, mesh,
+                                            num_future=num_future))
 
         def step_factory(epoch):
             return step_for(rollout_curriculum(epoch, model.cfg.if_render))
     else:
-        train_step = recorded(make_train_step(ema_decay))
+        train_step = recorded(make_train_step(ema_decay, mesh))
 
     eval_fn = None
     if args.validate:
@@ -184,10 +227,14 @@ def main(argv=None) -> dict:
                 return {"semantic_occ":
                         rollout(params, batch)["semantic_occ_0s"]}
 
+        mine = [{**val_samples[i], "_valid": valid}
+                for i, valid in rank_padded_indices(
+                    len(val_samples), mesh.data_rank, mesh.n_data)]
+
         def eval_fn(st):
-            return evaluate_miou(model, st, val_samples,
+            return evaluate_miou(model, st, mine,
                                  num_classes=model.cfg.num_classes,
-                                 predict_fn=predict_fn)
+                                 predict_fn=predict_fn, mesh=mesh)
 
     max_epochs = args.epochs or int(cfg.get("runner", {}).get("max_epochs", 12))
     state = train_epochs(
@@ -195,7 +242,7 @@ def main(argv=None) -> dict:
         log_interval=int(cfg.get("log_interval", 50)),
         generator=torch.Generator().manual_seed(args.seed + 1),
         step_factory=step_factory, max_iters_per_epoch=args.max_iters,
-        eval_fn=eval_fn, profile_dir=args.profile_dir)
+        eval_fn=eval_fn, profile_dir=args.profile_dir, mesh=mesh)
     ckpt_dir = os.path.join(work_dir, "checkpoints")
     step = latest_step(ckpt_dir)
     result = {
@@ -204,7 +251,8 @@ def main(argv=None) -> dict:
                                                                 step),
         "metrics": {k: float(v) for k, v in last.get("metrics", {}).items()},
     }
-    print(json.dumps(result), flush=True)
+    if mesh.rank == 0:
+        print(json.dumps(result), flush=True)
     return result
 
 

@@ -15,7 +15,8 @@ holding plain dicts of tensors and numbers only, so that
 
 The newest `max_to_keep` files are kept, as orbax keeps them. A file is
 written under a temporary name and then renamed, so a run cut while saving
-leaves the previous checkpoint readable.
+leaves the previous checkpoint readable. One process writes a path: with
+several, `train_epochs` saves on rank 0 alone and the others wait.
 """
 
 from __future__ import annotations

@@ -4,9 +4,11 @@ Counterpart of `preworld_tpu/train/evaluate.py`, which replaces the
 reference's distributed test loop + rank gather (`mmdet3d/apis/test.py:
 63-195`). Predictions run batched on the model's device with the EMA
 weights (`eval_params`), and the per-horizon confusion histograms are
-summed across processes at the end, one all-reduce of a (C, C) f64 array
-over the default process group when `torch.distributed` runs more than one
-process (gloo on the CPU), where the JAX package gathers across hosts.
+summed across processes at the end, one all-reduce of a (C, C) f64 array,
+where the JAX package gathers across hosts: over a `parallel` mesh's data
+group when a mesh is given (its seq replicas hold the same samples, which
+then count once), else over the default process group when
+`torch.distributed` runs more than one process (gloo on the CPU).
 
 The model predicts through `torch.func.functional_call`, so the training
 parameters, their gradients, the optimizer and the BatchNorm buffers are
@@ -33,11 +35,14 @@ INFER_KEYS = (
 )
 
 
-def _world() -> tuple:
-    """(rank, world) of the default process group, (0, 1) without one."""
+def _world(mesh=None) -> tuple:
+    """(rank, world, group) the samples are strided over: the mesh's data
+    group, else the default process group, else (0, 1, None)."""
+    if mesh is not None:
+        return mesh.data_rank, mesh.n_data, mesh.data_group
     if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
+        return dist.get_rank(), dist.get_world_size(), None
+    return 0, 1, None
 
 
 def rank_padded_indices(n: int, rank: Optional[int] = None,
@@ -57,7 +62,7 @@ def rank_padded_indices(n: int, rank: Optional[int] = None,
     `"_valid"` — `_batched` strips it and excludes padding from n_valid.
     """
     if rank is None or world is None:
-        r, w = _world()
+        r, w, _ = _world()
         rank = r if rank is None else rank
         world = w if world is None else world
     per = -(-n // world) if n > 0 else 0
@@ -93,14 +98,15 @@ def _batched(samples: Iterable[Dict[str, np.ndarray]], batch_size: int):
         yield collate(chunk), n_valid
 
 
-def all_hosts_sum(hist: np.ndarray) -> np.ndarray:
-    """Sum a process-local array across the processes of the default
-    group (an f64 all-reduce); the input itself with one process."""
-    if _world()[1] == 1:
+def all_hosts_sum(hist: np.ndarray, mesh=None) -> np.ndarray:
+    """Sum a process-local array across the processes of `_world(mesh)`
+    (an f64 all-reduce); the input itself with one process."""
+    _, world, group = _world(mesh)
+    if world == 1:
         return hist
-    dev = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    dev = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
     t = torch.as_tensor(np.asarray(hist, np.float64), device=dev)
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=group)
     return t.cpu().numpy()
 
 
@@ -156,11 +162,14 @@ def evaluate_miou(
     dump_fn: Optional[Callable[[int, np.ndarray], None]] = None,
     fscore_metric=None,
     device=None,
+    mesh=None,
 ) -> Dict:
     """Run 3-D occ mIoU over `samples` (dicts of per-sample arrays).
 
     `samples` are THIS PROCESS's samples (rank-strided upstream when
-    several processes evaluate, like the training loader); `batch_size` is
+    several processes evaluate, like the training loader: by the mesh's
+    data rank when the processes form a `parallel` mesh, which is then
+    passed as `mesh`); `batch_size` is
     the per-process batch and defaults to 1. Samples must carry
     `voxel_semantics` (+ optional masks) for scoring; inference uses only
     INFER_KEYS, moved to `device` (the model's by default).
@@ -203,14 +212,14 @@ def evaluate_miou(
                         batch.get("mask_camera", [None] * batch_size)[j],
                     )
         seen += n_valid
-    metric.hist = all_hosts_sum(metric.hist)
+    metric.hist = all_hosts_sum(metric.hist, mesh)
     results = metric.count_miou()
     if fscore_metric is not None:
         # per-sample means: sum the (weighted) accumulators across processes
         sums = all_hosts_sum(np.asarray([
             fscore_metric.tot_acc, fscore_metric.tot_cmpl,
             fscore_metric.tot_f1, float(fscore_metric.cnt),
-        ]))
+        ]), mesh)
         fscore_metric.tot_acc, fscore_metric.tot_cmpl, \
             fscore_metric.tot_f1 = sums[0], sums[1], sums[2]
         fscore_metric.cnt = int(sums[3])
@@ -227,11 +236,13 @@ def evaluate_miou_temporal(
     batch_size: Optional[int] = None,
     predict_fn: Optional[Callable] = None,
     device=None,
+    mesh=None,
 ) -> Dict:
     """Batched 4-D forecasting eval (reference serial loop:
     `mmdet3d/apis/test.py:198-259`).
 
-    `samples` are THIS PROCESS's samples; each dict carries INFER_KEYS plus
+    `samples` are THIS PROCESS's samples (`mesh` as in `evaluate_miou`);
+    each dict carries INFER_KEYS plus
     per-horizon GT under `gt_h{0..3}` (horizon h <-> rollout step
     rollout_steps[h] <-> output key `semantic_occ_{step}s`).
     """
@@ -257,7 +268,6 @@ def evaluate_miou_temporal(
                  if f"gt_h{h}" in batch},
             )
     for h in metric.hists:
-        metric.hists[h] = all_hosts_sum(metric.hists[h])
-    metric.cnt = int(all_hosts_sum(np.asarray([metric.cnt]))[0]) \
-        if _world()[1] > 1 else metric.cnt
+        metric.hists[h] = all_hosts_sum(metric.hists[h], mesh)
+    metric.cnt = int(all_hosts_sum(np.asarray([metric.cnt]), mesh)[0])
     return metric.count_miou()

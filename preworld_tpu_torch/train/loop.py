@@ -6,7 +6,11 @@ the lr schedule, grad clip and EMA live in `ClippedAdamW` and the
 `TrainState`; this loop is thin glue around the train step with host-side
 logging and checkpoints. Each batch moves to the model's device; a
 `torch.Generator` takes the place of the JAX loop's `rng`. There is no
-`shard_fn` (one card) and no `donate` (an XLA knob).
+`shard_fn` (the loader gives each rank its rows, and the render takes its
+rays, `parallel.shard_batch`) and no `donate` (an XLA knob). With a mesh of
+several processes, rank 0 alone logs, writes metrics.jsonl and saves the
+checkpoint, and every rank waits for the save; `maybe_resume` restores the
+step rank 0 finds on every rank.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import Callable, Dict, Iterable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.synthetic import to_device
 from .checkpoints import latest_step, restore_checkpoint, save_checkpoint
@@ -48,6 +53,7 @@ def train_epochs(
     step_factory: Optional[Callable] = None,
     max_iters_per_epoch: Optional[int] = None,
     profile_dir: Optional[str] = None,
+    mesh=None,
 ):
     """Run epochs `start_epoch` .. `max_epochs` - 1; returns the final
     state.
@@ -61,13 +67,17 @@ def train_epochs(
     epoch-dependent step functions.
     profile_dir: a `torch.profiler` trace of iterations 8-11 of the first
     epoch, written there as a Chrome trace.
+    mesh: the step's `parallel` mesh; its rank 0 writes the records, the
+    checkpoints and the profile.
     """
+    main = mesh is None or mesh.rank == 0
     os.makedirs(work_dir, exist_ok=True)
     generator = generator if generator is not None \
         else torch.Generator().manual_seed(0)
     device = next(state.model.parameters()).device
     step_fn = train_step
-    with open(os.path.join(work_dir, "metrics.jsonl"), "a") as metrics_log:
+    log_path = os.path.join(work_dir, "metrics.jsonl") if main else os.devnull
+    with open(log_path, "a") as metrics_log:
         for epoch in range(start_epoch, max_epochs):
             if step_factory is not None:
                 step_fn = step_factory(epoch)
@@ -80,7 +90,7 @@ def train_epochs(
                 if max_iters_per_epoch is not None \
                         and it >= max_iters_per_epoch:
                     break
-                if profile_dir and epoch == start_epoch and it == 8:
+                if profile_dir and main and epoch == start_epoch and it == 8:
                     prof = torch.profiler.profile(activities=_activities(
                         device))
                     prof.start()
@@ -99,21 +109,39 @@ def train_epochs(
                         "time_per_iter": round(dt, 3),
                         **{k: round(v, 5) for k, v in metrics.items()},
                     }
-                    logger.info(json.dumps(rec))
+                    if main:
+                        logger.info(json.dumps(rec))
                     metrics_log.write(json.dumps(rec) + "\n")
                     metrics_log.flush()
             if prof is not None:
                 _stop_profile(prof, profile_dir)
             if (epoch + 1) % checkpoint_interval == 0:
-                save_checkpoint(os.path.join(work_dir, "checkpoints"), state,
-                                int(state.step))
+                if main:
+                    save_checkpoint(os.path.join(work_dir, "checkpoints"),
+                                    state, int(state.step))
+                _barrier(mesh)
             if eval_fn is not None:
                 results = eval_fn(state)
-                logger.info("eval@epoch%d: %s", epoch, results)
+                if main:
+                    logger.info("eval@epoch%d: %s", epoch, results)
                 metrics_log.write(
                     json.dumps({"epoch": epoch, "eval": results}) + "\n")
                 metrics_log.flush()
     return state
+
+
+def _barrier(mesh) -> None:
+    if mesh is not None and mesh.world > 1:
+        dist.barrier()
+
+
+def _agree(mesh, device, *values: int):
+    """Rank 0's `values` on every rank of `mesh` (one broadcast)."""
+    if mesh is None or mesh.world == 1:
+        return values
+    t = torch.tensor(values, dtype=torch.int64, device=device)
+    dist.broadcast(t, 0)
+    return tuple(t.tolist())
 
 
 def _activities(device: torch.device):
@@ -131,8 +159,11 @@ def _stop_profile(prof, profile_dir: str) -> None:
     logger.info("profile written to %s", path)
 
 
-def maybe_resume(state, work_dir: str, resume_from: Optional[str] = None):
+def maybe_resume(state, work_dir: str, resume_from: Optional[str] = None,
+                 mesh=None):
     """Resume the train state from a checkpoint. Returns (state, resumed).
+    With a mesh of several processes, every rank restores the checkpoint
+    that rank 0 finds (the work dir is shared).
 
     With `resume_from` set, honours the explicit path (reference
     `--resume-from`, `tools/train.py:148-156` + `utils/patch.py:56-99`):
@@ -141,16 +172,16 @@ def maybe_resume(state, work_dir: str, resume_from: Optional[str] = None):
     (an explicit path silently falling back would break the pretrain ->
     finetune handoff). Otherwise auto-resumes from the latest checkpoint in
     `work_dir/checkpoints` (`--auto-resume`, `utils/patch.py:56-72`)."""
+    cands = ((os.path.join(resume_from, "checkpoints"), resume_from)
+             if resume_from else (os.path.join(work_dir, "checkpoints"),))
+    found = next(((i, step) for i, step in enumerate(map(latest_step, cands))
+                  if step is not None), (-1, -1))
+    device = next(state.model.parameters()).device
+    i, step = _agree(mesh, device, *found)
+    if i >= 0:
+        return restore_checkpoint(cands[i], state, step), True
     if resume_from:
-        for cand in (os.path.join(resume_from, "checkpoints"), resume_from):
-            step = latest_step(cand)
-            if step is not None:
-                return restore_checkpoint(cand, state, step), True
         raise FileNotFoundError(
             f"--resume-from {resume_from}: no checkpoint found "
             "(looked in ./checkpoints and the path itself)")
-    ckpt_dir = os.path.join(work_dir, "checkpoints")
-    step = latest_step(ckpt_dir)
-    if step is None:
-        return state, False
-    return restore_checkpoint(ckpt_dir, state, step), True
+    return state, False

@@ -29,6 +29,10 @@ import math
 from typing import Callable, Dict, Sequence
 
 import torch
+import torch.distributed as dist
+
+from ..parallel.collectives import allreduce_grads, counts
+from ..parallel.mesh import use_mesh
 
 
 def lr_schedule(base_lr: float = 1e-4, warmup_iters: int = 200,
@@ -133,20 +137,30 @@ def eval_params(state: TrainState) -> Dict[str, torch.Tensor]:
     return {n: p.detach() for n, p in state.model.named_parameters()}
 
 
-def make_train_step(ema_decay: float = 0.999, **loss_kwargs):
+def make_train_step(ema_decay: float = 0.999, mesh=None, **loss_kwargs):
     """(state, batch, generator) -> (state, metrics): the model's loss dict
     in train mode with masks from `generator`, backward, clip + AdamW, EMA.
     metrics: each loss, `loss_total` and the pre-clip `grad_norm`, as 0-d
     tensors on the model's device. `loss_kwargs` go to `model.loss`, e.g.
-    `num_future=` for the forecasting model's rollout curriculum."""
+    `num_future=` for the forecasting model's rollout curriculum.
+
+    `mesh` (`parallel.make_mesh`, the JAX `make_train_step(mesh=)`): the
+    batch is this rank's rows, the generator one every rank holds alike.
+    The forward and backward run under `parallel.use_mesh`, the gradients
+    are summed over the world before the optimizer (`parallel` invariant
+    3), and the metrics are the global batch's, alike on every rank. A
+    trivial mesh launches no collective."""
+    world = None if mesh is None or mesh.world == 1 else mesh.world_group
 
     def train_step(state: TrainState, batch, generator: torch.Generator):
         model, opt = state.model, state.optimizer
         model.train()
         opt.zero_grad(set_to_none=True)
-        losses = model.loss(batch, generator, **loss_kwargs)
-        total = sum(losses[k] for k in sorted(losses))
-        total.backward()
+        with use_mesh(mesh):
+            losses = model.loss(batch, generator, **loss_kwargs)
+            total = sum(losses[k] for k in sorted(losses))
+            total.backward()
+        allreduce_grads(model.parameters(), world)
         grad_norm = opt.step()
         d = ema_decay_schedule(state.ema_updates + 1, ema_decay)
         with torch.no_grad():
@@ -158,6 +172,12 @@ def make_train_step(ema_decay: float = 0.999, **loss_kwargs):
         state.ema_updates += 1
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["loss_total"] = total.detach()
+        if world is not None:  # each rank's shares -> the global values
+            keys = sorted(metrics)
+            vals = torch.stack([metrics[k].float() for k in keys])
+            counts["metrics"] += 1
+            dist.all_reduce(vals, group=world)
+            metrics = dict(zip(keys, vals.unbind()))
         metrics["grad_norm"] = grad_norm
         return state, metrics
 
