@@ -150,9 +150,15 @@ fallback to the CPU or to a kernel's plain version:
              on a 200x200x16 field, forward and gradient.
   bench-entry  `python3 -m preworld_tpu_torch.tools.bench` in a process of
              its own: exit 0, its JSON line (printed on a line of its own)
-             with every key, every time finite and positive, and the
-             launches of a request (50 / 50 / 2 / 2) and of a streaming
-             step (24 / 24 / 1 / 1).
+             with every key, every time (and `tflops_fwd`, `mfu`) finite
+             and positive, and the launches of a request (50 / 50 / 2 / 2)
+             and of a streaming step (24 / 24 / 1 / 1).
+  flops      `utils/flops.py::count_forward` on the card: the flagship
+             predict's parameters read and built, aten and kernel FLOPs
+             and each kernel's launches (50 / 50 / 2 / 2) and FLOPs, equal
+             to the bench entry's `tflops_fwd`; then the reference config
+             on the card (bf16, kernels) and on the CPU (f32, plain
+             twins): the same FLOP total and parameters read, exactly.
 
 In a temporary directory the script deletes at its end:
 
@@ -182,6 +188,18 @@ In a temporary directory the script deletes at its end:
   pretrain-loop-flagship  the pretrain config's model for one iteration at
              batch 1 from the tree (38400 rays): the six losses finite,
              K1b / K2b 24 launches each.
+  offline-chain  the tree's 8 key frames over 2 scenes as a raw nuScenes
+             layout (JSON tables, 1600x900 JPEGs, lidar sweeps of 34,720
+             points, uint8 lidarseg labels, occupancy labels), then the
+             port's offline tools, each `python3 -m
+             preworld_tpu_torch.tools.<name>` in a process of its own:
+             create_data, gen_depth_gt, gen_seg_gt, precompute_rays (one
+             file of each per image); the pretrain config's dataset on
+             what they wrote, with and without `ray_cache_path` (38400
+             rays, finite, lidar depth present), and one pretrain train
+             step on the card from that sample (the six losses finite, the
+             launches of a step). Prints s per tool, ms per sample and the
+             step's ms.
   cli        the port's four CLIs, each a process of its own on the
              card: `train --synthetic --epochs 1 --max-iters 2` on the
              finetune-traj config (batch 2), `test_temporal --synthetic
@@ -339,10 +357,11 @@ STREAMING_PER_STEP.update(fused_swin_attn_block=24, fused_swin_mlp=24,
 STREAMING_FRAMES = (2, 1, 0, 0)
 # the keys of the bench entry's JSON line, and those that are seconds or
 # frames per second
-BENCH_KEYS = ("metric", "value", "unit", "streaming_fps", "pretrain_step_s",
-              "finetune_step_s", "card", "launches_per_request",
-              "launches_per_streaming_step")
-BENCH_TIMES = ("value", "streaming_fps", "pretrain_step_s", "finetune_step_s")
+BENCH_KEYS = ("metric", "value", "unit", "tflops_fwd", "mfu", "streaming_fps",
+              "pretrain_step_s", "finetune_step_s", "card",
+              "launches_per_request", "launches_per_streaming_step")
+BENCH_TIMES = ("value", "tflops_fwd", "mfu", "streaming_fps",
+               "pretrain_step_s", "finetune_step_s")
 # Swin-B stages at 512x1408, 6 images: (C, heads, Hp, Wp, H, W), ws 12
 SWIN_STAGES = [(128, 4, 132, 360, 128, 352), (256, 8, 72, 180, 64, 176),
                (512, 16, 36, 96, 32, 88), (1024, 32, 24, 48, 16, 44)]
@@ -2580,6 +2599,7 @@ TREE_SRC = (900, 1600)
 TREE_GT_POINTS = 4000
 TREE_LIDAR_POINTS = 34720
 TREE_CAM_YAWS = (55.0, 0.0, -55.0, -110.0, 180.0, 110.0)  # DEFAULT_CAMS
+TREE_INTRIN = [[1266.4, 0.0, 816.3], [0.0, 1266.4, 491.5], [0.0, 0.0, 1.0]]
 TREE_PKL = "bevdetv2-nuscenes_infos_train.pkl"
 # train-loop-flagship: epochs x iterations with a checkpoint each epoch,
 # then one more epoch resumed from it; the eval after each epoch over
@@ -2611,6 +2631,55 @@ def rotmat_to_quat(r) -> list:
     return q
 
 
+def tree_ego_pose(t: int):
+    """Key frame t of the tree: (scene, frame within it, ego rotation
+    quaternion, ego translation); the ego turns 2 degrees and moves 0.5 m a
+    frame."""
+    import numpy as np
+
+    scene, f = divmod(t, TREE_FRAMES // TREE_SCENES)
+    yaw = math.radians(2.0 * f + 30.0 * scene)
+    ego_rot = rotmat_to_quat(np.array(
+        [[math.cos(yaw), -math.sin(yaw), 0.0],
+         [math.sin(yaw), math.cos(yaw), 0.0], [0.0, 0.0, 1.0]]))
+    ego_tr = [600.0 + 200.0 * scene + 0.5 * f * math.cos(yaw),
+              1600.0 + 0.5 * f * math.sin(yaw), 0.0]
+    return scene, f, ego_rot, ego_tr
+
+
+def tree_camera(yaw_deg: float):
+    """(sensor2ego rotation quaternion, translation) of the tree's camera
+    looking along `yaw_deg` (x right, y down, z forward)."""
+    import numpy as np
+
+    a = math.radians(yaw_deg)
+    fwd = [math.cos(a), math.sin(a), 0.0]
+    right = [math.sin(a), -math.cos(a), 0.0]
+    rot = np.stack([right, [0.0, 0.0, -1.0], fwd], axis=1)
+    return rotmat_to_quat(rot), [fwd[0], 0.5 * fwd[1], 1.6]
+
+
+def tree_labels(rng, shape) -> dict:
+    """One frame's random occupancy labels of `shape` (70 % free)."""
+    import numpy as np
+
+    return dict(
+        semantics=np.where(rng.uniform(size=shape) < 0.7, 17,
+                           rng.integers(0, 17, shape)).astype(np.uint8),
+        mask_lidar=(rng.uniform(size=shape) < 0.4).astype(np.uint8),
+        mask_camera=(rng.uniform(size=shape) < 0.6).astype(np.uint8))
+
+
+def tree_image(rng):
+    """A 1600x900 RGB image: a random 80x45 one resized bilinearly."""
+    import numpy as np
+    from PIL import Image
+
+    H, W = TREE_SRC
+    small = rng.integers(0, 256, (H // 20, W // 20, 3), np.uint8)
+    return Image.fromarray(small).resize((W, H), Image.BILINEAR)
+
+
 def write_nuscenes_tree(root: str, grid_shape, seed: int = 0) -> str:
     """Write the data-flagship tree under `root` (paths in the infos
     relative to it, as `data_root` reads them), its occupancy labels of
@@ -2618,34 +2687,20 @@ def write_nuscenes_tree(root: str, grid_shape, seed: int = 0) -> str:
     import pickle
 
     import numpy as np
-    from PIL import Image
 
     from preworld_tpu_torch.data import DEFAULT_CAMS
 
     rng = np.random.default_rng(seed)
     H, W = TREE_SRC
-    intrin = np.array([[1266.4, 0.0, 816.3], [0.0, 1266.4, 491.5],
-                       [0.0, 0.0, 1.0]])
+    intrin = np.array(TREE_INTRIN)
     infos = []
-    per_scene = TREE_FRAMES // TREE_SCENES
     for t in range(TREE_FRAMES):
-        scene, f = divmod(t, per_scene)
-        yaw = math.radians(2.0 * f + 30.0 * scene)
-        ego_rot = rotmat_to_quat(np.array(
-            [[math.cos(yaw), -math.sin(yaw), 0.0],
-             [math.sin(yaw), math.cos(yaw), 0.0], [0.0, 0.0, 1.0]]))
-        ego_tr = [600.0 + 200.0 * scene + 0.5 * f * math.cos(yaw),
-                  1600.0 + 0.5 * f * math.sin(yaw), 0.0]
+        scene, f, ego_rot, ego_tr = tree_ego_pose(t)
         token = f"tok{t:03d}"
         occ = os.path.join("gts", f"scene-{scene:04d}", token)
         os.makedirs(os.path.join(root, occ))
-        shape = tuple(grid_shape)
-        np.savez_compressed(
-            os.path.join(root, occ, "labels.npz"),
-            semantics=np.where(rng.uniform(size=shape) < 0.7, 17,
-                               rng.integers(0, 17, shape)).astype(np.uint8),
-            mask_lidar=(rng.uniform(size=shape) < 0.4).astype(np.uint8),
-            mask_camera=(rng.uniform(size=shape) < 0.6).astype(np.uint8))
+        np.savez_compressed(os.path.join(root, occ, "labels.npz"),
+                            **tree_labels(rng, tuple(grid_shape)))
         pts = np.empty((TREE_LIDAR_POINTS, 5), np.float32)
         pts[:, :2] = rng.uniform(-50.0, 50.0, (TREE_LIDAR_POINTS, 2))
         pts[:, 2] = rng.uniform(-2.0, 4.0, TREE_LIDAR_POINTS)
@@ -2663,19 +2718,14 @@ def write_nuscenes_tree(root: str, grid_shape, seed: int = 0) -> str:
                 "ego2global_translation": ego_tr, "occ_path": occ,
                 "cams": {}}
         for cam, a in zip(DEFAULT_CAMS, TREE_CAM_YAWS):
-            a = math.radians(a)
-            fwd = [math.cos(a), math.sin(a), 0.0]
-            right = [math.sin(a), -math.cos(a), 0.0]
-            rot = np.stack([right, [0.0, 0.0, -1.0], fwd], axis=1)
+            cam_rot, cam_tr = tree_camera(a)
             name = os.path.join("samples", cam, f"{token}__{cam}.jpg")
             os.makedirs(os.path.join(root, "samples", cam), exist_ok=True)
-            small = rng.integers(0, 256, (H // 20, W // 20, 3), np.uint8)
-            Image.fromarray(small).resize((W, H), Image.BILINEAR).save(
-                os.path.join(root, name), quality=90)
+            tree_image(rng).save(os.path.join(root, name), quality=90)
             info["cams"][cam] = {
                 "data_path": name, "cam_intrinsic": intrin,
-                "sensor2ego_rotation": rotmat_to_quat(rot),
-                "sensor2ego_translation": [fwd[0], 0.5 * fwd[1], 1.6],
+                "sensor2ego_rotation": cam_rot,
+                "sensor2ego_translation": cam_tr,
                 "ego2global_rotation": ego_rot,
                 "ego2global_translation": ego_tr}
             uv = np.stack([rng.integers(0, W, TREE_GT_POINTS),
@@ -2696,9 +2746,9 @@ def write_nuscenes_tree(root: str, grid_shape, seed: int = 0) -> str:
     return ann
 
 
-def tree_dataset(conf, root: str, is_train: bool):
+def tree_dataset(conf, root: str, is_train: bool, **kw):
     """The config's train dataset on the tree (its pkl, data root and GT
-    paths in place of the config's)."""
+    paths in place of the config's; `kw` to the dataset)."""
 
     from preworld_tpu_torch.data import NuScenesOccDataset
 
@@ -2711,7 +2761,7 @@ def tree_dataset(conf, root: str, is_train: bool):
         aux_frames=tr.get("aux_frames", (-3, -2, -1, 1, 2, 3)),
         max_ray_nums=int(tr.get("max_ray_nums", 38400)),
         depth_gt_path=os.path.join(root, "depth_gt"),
-        semantic_gt_path=os.path.join(root, "seg_gt"), data_root=root)
+        semantic_gt_path=os.path.join(root, "seg_gt"), data_root=root, **kw)
 
 
 def run_data_flagship(root: str) -> dict:
@@ -3114,6 +3164,245 @@ def run_pretrain_loop_flagship(root: str, tmp: str) -> dict:
             "loader_wait_s": loader.waits[0][0],
             "losses": {k: train[0][k] for k in PRETRAIN_LOSSES},
             "launches_per_step": {k: v for k, v in steps[0].items() if v}}
+
+
+# offline-chain: the raw nuScenes layout's version directory, and the port's
+# offline tools in the order a user runs them, each a process of its own
+RAW_VERSION = "v1.0-trainval"
+OFFLINE_TOOLS = ("create_data", "gen_depth_gt", "gen_seg_gt",
+                 "precompute_rays")
+OFFLINE_TIMEOUT_S = 300
+
+
+def write_raw_nuscenes(root: str, grid_shape, seed: int = 1) -> None:
+    """The tree's 8 key frames over 2 scenes (its rig, poses and sizes) as
+    a raw nuScenes layout under `root`: the JSON tables of RAW_VERSION,
+    1600x900 JPEGs, lidar sweeps of TREE_LIDAR_POINTS points, uint8
+    lidarseg labels (32 classes) and occupancy labels of `grid_shape`."""
+    import numpy as np
+
+    from preworld_tpu_torch.data import DEFAULT_CAMS
+
+    rng = np.random.default_rng(seed)
+    tables = {k: [] for k in ("scene", "sample", "sample_data",
+                              "calibrated_sensor", "ego_pose", "sensor",
+                              "sample_annotation")}
+    for s in range(TREE_SCENES):
+        tables["scene"].append({"token": f"sc{s}", "name": f"scene-{s:04d}"})
+    tables["sensor"].append({"token": "sens_lidar", "channel": "LIDAR_TOP"})
+    tables["calibrated_sensor"].append({
+        "token": "cs_lidar", "sensor_token": "sens_lidar",
+        "rotation": [1.0, 0.0, 0.0, 0.0], "translation": [0.94, 0.0, 1.84],
+        "camera_intrinsic": []})
+    for cam, a in zip(DEFAULT_CAMS, TREE_CAM_YAWS):
+        rot, tr = tree_camera(a)
+        tables["sensor"].append({"token": f"sens_{cam}", "channel": cam})
+        tables["calibrated_sensor"].append({
+            "token": f"cs_{cam}", "sensor_token": f"sens_{cam}",
+            "rotation": rot, "translation": tr,
+            "camera_intrinsic": TREE_INTRIN})
+        os.makedirs(os.path.join(root, "samples", cam))
+    for sub in ("samples/LIDAR_TOP", f"lidarseg/{RAW_VERSION}", RAW_VERSION):
+        os.makedirs(os.path.join(root, sub))
+    for t in range(TREE_FRAMES):
+        scene, _, ego_rot, ego_tr = tree_ego_pose(t)
+        token = f"tok{t:03d}"
+        tables["sample"].append({"token": token, "scene_token": f"sc{scene}",
+                                 "timestamp": 1_533_000_000_000_000
+                                 + 500_000 * t})
+        tables["ego_pose"].append({"token": f"pose{t}", "rotation": ego_rot,
+                                   "translation": ego_tr})
+        lidar = f"samples/LIDAR_TOP/{token}__LIDAR_TOP.pcd.bin"
+        tables["sample_data"].append({
+            "token": f"sd_lidar{t}", "sample_token": token,
+            "calibrated_sensor_token": "cs_lidar",
+            "ego_pose_token": f"pose{t}", "filename": lidar,
+            "is_key_frame": True})
+        pts = np.empty((TREE_LIDAR_POINTS, 5), np.float32)
+        pts[:, :2] = rng.uniform(-50.0, 50.0, (TREE_LIDAR_POINTS, 2))
+        pts[:, 2] = rng.uniform(-2.0, 4.0, TREE_LIDAR_POINTS)
+        pts[:, 3] = rng.uniform(0, 255, TREE_LIDAR_POINTS)
+        pts[:, 4] = rng.integers(0, 32, TREE_LIDAR_POINTS)
+        pts.tofile(os.path.join(root, lidar))
+        rng.integers(0, 32, TREE_LIDAR_POINTS, dtype=np.uint8).tofile(
+            os.path.join(root, "lidarseg", RAW_VERSION,
+                         f"sd_lidar{t}_lidarseg.bin"))
+        for cam in DEFAULT_CAMS:
+            name = f"samples/{cam}/{token}__{cam}.jpg"
+            tree_image(rng).save(os.path.join(root, name), quality=90)
+            tables["sample_data"].append({
+                "token": f"sd_{cam}{t}", "sample_token": token,
+                "calibrated_sensor_token": f"cs_{cam}",
+                "ego_pose_token": f"pose{t}", "filename": name,
+                "is_key_frame": True})
+        occ = os.path.join(root, "gts", f"scene-{scene:04d}", token)
+        os.makedirs(occ)
+        np.savez_compressed(os.path.join(occ, "labels.npz"),
+                            **tree_labels(rng, tuple(grid_shape)))
+    for name, rows in tables.items():
+        with open(os.path.join(root, RAW_VERSION, f"{name}.json"), "w") as fh:
+            json.dump(rows, fh)
+
+
+def run_offline_tool(name: str, argv: list) -> float:
+    """`python3 -m preworld_tpu_torch.tools.<name> argv` in a process of its
+    own; exit 0 or fail. Returns its seconds."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", f"preworld_tpu_torch.tools.{name}", *argv],
+        cwd=root, capture_output=True, text=True, timeout=OFFLINE_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise AssertionError(f"offline-chain: {name} exit {run.returncode}: "
+                             f"{run.stderr[-2000:]}")
+    status("offline-chain", f"{name} {secs:.1f} s: "
+           f"{run.stdout.strip().splitlines()[-1]}")
+    return secs
+
+
+def run_offline_chain(root: str) -> dict:
+    """The raw layout, the port's four offline tools on it, the pretrain
+    config's dataset on what they wrote, with and without the ray cache,
+    and one pretrain train step on the card from the sample."""
+    import numpy as np
+
+    from preworld_tpu_torch.data import collate
+    from preworld_tpu_torch.geometry.rays import RAY_DIM
+    from preworld_tpu_torch.ops import _cuda
+    from preworld_tpu_torch.train import make_train_step
+    from preworld_tpu_torch.train.builder import build_grid_config
+    from preworld_tpu_torch.train.loop import batch_to
+    from preworld_tpu_torch.utils import Config
+
+    conf = Config.fromfile(PRETRAIN_CONFIG)
+    grid = tuple(int(v) for v in build_grid_config(conf["grid_config"]).size)
+    t0 = time.perf_counter()
+    write_raw_nuscenes(root, grid)
+    out = {"raw_write_s": time.perf_counter() - t0}
+    ann = os.path.join(root, TREE_PKL)
+    scenes = ",".join(f"scene-{s:04d}" for s in range(TREE_SCENES))
+    argv = {
+        "create_data": ["--root-path", root, "--version", RAW_VERSION,
+                        "--occ-gt-root", "gts", "--out-prefix", "bevdetv2",
+                        "--train-scenes", scenes, "--val-scenes", scenes],
+        "gen_depth_gt": ["--ann-file", ann, "--data-root", root, "--out-dir",
+                         os.path.join(root, "depth_gt"), "--workers", "4"],
+        "gen_seg_gt": ["--ann-file", ann, "--data-root", root, "--seg-root",
+                       os.path.join(root, "lidarseg", RAW_VERSION),
+                       "--out-dir", os.path.join(root, "seg_gt"),
+                       "--workers", "4"],
+        "precompute_rays": [ann, "--depth-gt-path",
+                            os.path.join(root, "depth_gt"),
+                            "--semantic-gt-path", os.path.join(root, "seg_gt"),
+                            "--out-dir", os.path.join(root, "rays_cache"),
+                            "--data-root", root, "--workers", "8"]}
+    out["tool_s"] = {name: run_offline_tool(name, argv[name])
+                     for name in OFFLINE_TOOLS}
+    images = TREE_FRAMES * len(TREE_CAM_YAWS)
+    counts = {d: len(os.listdir(os.path.join(root, d)))
+              for d in ("depth_gt", "seg_gt", "rays_cache")}
+    if set(counts.values()) != {images}:
+        raise AssertionError(f"offline-chain: files {counts}, expected "
+                             f"{images} of each")
+    out["depth_points"] = sum(
+        os.path.getsize(os.path.join(root, "depth_gt", f))
+        for f in os.listdir(os.path.join(root, "depth_gt"))) // 12
+    index = TREE_FRAMES // TREE_SCENES - 1
+    samples = {}
+    for name, kw in (("sample", {}),
+                     ("cached_sample",
+                      {"ray_cache_path": os.path.join(root, "rays_cache")})):
+        ds = tree_dataset(conf, root, is_train=True, **kw)
+        t0 = time.perf_counter()
+        s = ds[index]
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        samples[name] = s
+        bad = {k: v.shape for k, v in s.items()
+               if v.dtype.kind == "f" and not np.isfinite(v).all()}
+        if bad or s["rays"].shape != (ds.max_ray_nums, RAY_DIM) \
+                or not (s["gt_depth"] > 0).any() or ds.max_ray_nums != 38400:
+            raise AssertionError(f"offline-chain {name}: non-finite {bad}, "
+                                 f"rays {s['rays'].shape}, lidar depth "
+                                 f"{float((s['gt_depth'] > 0).mean())}")
+    out["lidar_depth_share"] = float((samples["sample"]["gt_depth"] > 0)
+                                     .mean())
+    state = config_state(conf)
+    expected = EXPECTED_PER_STEP_REMAT if state.model.cfg.remat \
+        else EXPECTED_PER_STEP
+    batch = batch_to(collate([samples["sample"]]), "cuda")
+    step = make_train_step(conf["ema"]["decay"])
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    _, metrics = step(state, batch, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    launches = dict(_cuda.launches)
+    losses = {k: float(metrics[k]) for k in PRETRAIN_LOSSES}
+    if launches != expected or not all(map(math.isfinite, losses.values())):
+        raise AssertionError(f"offline-chain: step launches {launches}, "
+                             f"losses {losses}")
+    out.update(losses=losses,
+               launches_per_step={k: v for k, v in launches.items() if v})
+    return out
+
+
+def run_flops(bench_entry) -> dict:
+    """`utils.flops.count_forward` on the card: the flagship predict
+    (params, aten and kernel FLOPs, each kernel's launches and FLOPs; the
+    bench entry's `tflops_fwd` the same count, where that phase ran), and
+    the reference config on the card (bf16, kernels) and the CPU (f32,
+    plain twins), whose totals and parameters read must be equal."""
+    from preworld_tpu_torch.data import synthetic_batch, to_device
+    from preworld_tpu_torch.models import PreWorld, PreWorldConfig
+    from preworld_tpu_torch.utils import init_weights
+    from preworld_tpu_torch.utils.flops import count_forward
+
+    cfg = PreWorldConfig(if_post_finetune=True, dtype=torch.bfloat16)
+    model = PreWorld(cfg).eval()
+    init_weights(model, seed=0)
+    model.cuda()
+    batch = to_device(synthetic_batch(cfg, 1, seed=0, with_labels=False),
+                      "cuda")
+    t0 = time.perf_counter()
+    flag = count_forward(model, batch)
+    count_s = time.perf_counter() - t0
+    del model, batch
+    torch.cuda.empty_cache()
+    launches = {k: v["launches"] for k, v in flag["kernels"].items()}
+    if launches != {k: v for k, v in EXPECTED_PER_REQUEST.items() if v}:
+        raise AssertionError(f"flops: flagship launches {launches}")
+    if bench_entry is not None and \
+            round(bench_entry["tflops_fwd"] * 1e12) != flag["flops"]:
+        raise AssertionError(f"flops: bench entry tflops_fwd "
+                             f"{bench_entry['tflops_fwd']}, count "
+                             f"{flag['flops']}")
+    status("flops", f"flagship predict: params {flag['params']} "
+           f"({flag['params_built']} built), {flag['flops'] / 1e9:.3f} "
+           f"GFLOPs = aten {flag['aten_flops'] / 1e9:.3f} + kernels "
+           f"{flag['kernel_flops'] / 1e9:.3f}; " + ", ".join(
+               f"{KERNELS[k][0]} {v['launches']} launches "
+               f"{v['flops'] / 1e9:.3f} GFLOPs"
+               for k, v in flag["kernels"].items()))
+    ref, card = reference_pair(reference_config())
+    b = synthetic_batch(ref.cfg, 1, seed=7, with_labels=False)
+    cpu = count_forward(ref, to_device(b, "cpu"))
+    gpu = count_forward(card, to_device(b, "cuda"))
+    same = (gpu["flops"] == cpu["flops"] and gpu["params"] == cpu["params"]
+            and cpu["kernel_flops"] == 0 and gpu["kernel_flops"] > 0)
+    status("flops", f"reference config: card {gpu['flops']} (aten "
+           f"{gpu['aten_flops']} + kernels {gpu['kernel_flops']}), CPU "
+           f"{cpu['flops']} (aten); params read {gpu['params']} / "
+           f"{cpu['params']}; equal {same}")
+    if not same:
+        raise AssertionError("flops: the card's reference count is not the "
+                             "CPU's")
+    return {"flagship": flag, "count_s": count_s,
+            "reference": {"card": gpu["flops"], "cpu": cpu["flops"],
+                          "card_kernel_flops": gpu["kernel_flops"],
+                          "params": gpu["params"],
+                          "kernels": gpu["kernels"]}}
 
 
 # ------------------------------------------ training across processes
@@ -3909,7 +4198,8 @@ def main() -> int:
                      ("traj-flagship", run_traj_flagship),
                      ("pretrain-traj-flagship", run_pretrain_traj_flagship),
                      ("bench-parts", run_bench_parts),
-                     ("bench-entry", run_bench_entry)):
+                     ("bench-entry", run_bench_entry),
+                     ("flops", lambda: run_flops(runs.get("bench-entry")))):
         runs[name] = phase(name, fn)
         if runs[name] is not None:
             status(name, "ok " + json.dumps(runs[name]))
@@ -3925,6 +4215,8 @@ def main() -> int:
                 ("eval-reference", check_eval_reference),
                 ("pretrain-loop-flagship",
                  lambda: run_pretrain_loop_flagship(tree, tmp)),
+                ("offline-chain", lambda: run_offline_chain(
+                    os.path.join(tmp, "raw_nuscenes"))),
                 ("cli", lambda: run_cli(tmp))):
             runs[name] = phase(name, fn)
             if runs[name] is not None:

@@ -8,7 +8,12 @@ and never reach a kernel.
 
 `launches` counts, per kernel wrapper, the calls that launched the kernel
 (plain-version calls on CPU tensors are not counted); a backward kernel
-chain counts under its own name (`*_bwd`).
+chain counts under its own name (`*_bwd`). `flops` adds, at each forward
+launch, what `torch.utils.flop_counter` counts for the wrapper's plain
+twin at the launch's shapes (the `*_flops` function in the wrapper's
+module), so that `utils/flops.py` counts the same forward FLOPs on the
+card, where the counter cannot see a ctypes launch, as on the CPU, where
+it sees the plain twin; the backward chains add nothing.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ KERNELS = ("fused_swin_attn_block", "fused_swin_mlp", "plane_sweep_cost_hom",
            "fused_window_attention_bwd", "band_window_attention_bwd",
            "plane_sweep_cost")
 launches = {k: 0 for k in KERNELS}
+flops = {k: 0 for k in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,8 +82,10 @@ build_info: dict = {}
 
 
 def reset_launches() -> None:
+    """Set every launch count and FLOP count to 0."""
     for k in launches:
         launches[k] = 0
+        flops[k] = 0
 
 
 def _sources():

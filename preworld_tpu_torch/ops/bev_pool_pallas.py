@@ -49,6 +49,16 @@ def interval_starts_plain(ids, num_voxels: int):
     return torch.repeat_interleave(first, hi - lo)
 
 
+def bev_pool_flops(P: int, C: int, num_voxels: int) -> int:
+    """What `torch.utils.flop_counter` counts for K4's plain twin
+    (`ops.bev_pool.bev_pool`) on P points of C channels: 0. Its depth x
+    feature products are elementwise and its sums an `index_add_`, which
+    the counter does not count (it counts products and convolutions), so
+    the forward FLOP count (`utils/flops.py`) leaves this kernel's work
+    out on either device."""
+    return 0
+
+
 def bev_pool_sorted(ids, order, depth, pix, feat, num_voxels: int):
     """K4's kernels on CUDA tensors, after the sort: the boundary pass, the
     long intervals' slices and the interval walk. ids, order from
@@ -79,6 +89,7 @@ def bev_pool_sorted(ids, order, depth, pix, feat, num_voxels: int):
         _cuda.stream_ptr(dev))
     _cuda.check(rc, "bev_pool_fused")
     _cuda.launches["bev_pool_fused"] += 1
+    _cuda.flops["bev_pool_fused"] += bev_pool_flops(P, C, num_voxels)
     return out, ints[2 * P:]
 
 

@@ -160,6 +160,17 @@ def plane_sweep_cost_plain(prev, curr, grid, bias: float = 0.0):
     return _plain_cost(prev, curr, D, coords, bias)
 
 
+def plane_sweep_cost_flops(BN: int, D: int, H: int, W: int, C: int) -> int:
+    """What `torch.utils.flop_counter` counts for the plain twins of K3 and
+    K7 at these shapes: 0. Their arithmetic (sample positions, bilinear
+    weights, the |curr - sample| channel sum) is gathers and elementwise
+    operations, and the counter counts only products and convolutions
+    (`mm`, `bmm`, `addmm`, `convolution`, attention), so the forward FLOP
+    count (`utils/flops.py`) leaves these kernels' work out on either
+    device."""
+    return 0
+
+
 def _check_width(C: int, name: str) -> None:
     if C % _KERNEL_CHUNK or not 0 < C <= _KERNEL_MAX_C:
         raise ValueError(f"{name} takes C = {_KERNEL_CHUNK} k up to "
@@ -183,6 +194,8 @@ def plane_sweep_cost_hom(prev, curr, hom, bias: float = 0.0):
         BN, D, H, W, C, float(bias), _cuda.stream_ptr(prev.device))
     _cuda.check(rc, "plane_sweep_cost_hom")
     _cuda.launches["plane_sweep_cost_hom"] += 1
+    _cuda.flops["plane_sweep_cost_hom"] += plane_sweep_cost_flops(
+        BN, D, H, W, C)
     return out
 
 
@@ -211,4 +224,5 @@ def plane_sweep_cost(prev, curr, grid, bias: float = 0.0):
         BN, D, H, W, C, float(bias), _cuda.stream_ptr(prev.device))
     _cuda.check(rc, "plane_sweep_cost")
     _cuda.launches["plane_sweep_cost"] += 1
+    _cuda.flops["plane_sweep_cost"] += plane_sweep_cost_flops(BN, D, H, W, C)
     return out

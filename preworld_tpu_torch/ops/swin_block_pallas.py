@@ -94,6 +94,17 @@ def fused_swin_attn_block_bwd_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
         return torch.autograd.grad(out, leaves, dy.to(out.dtype))
 
 
+def fused_swin_attn_block_flops(B: int, Hp: int, Wp: int, C: int,
+                                ws: int) -> int:
+    """What `torch.utils.flop_counter` counts for
+    `fused_swin_attn_block_plain` on x (B, Hp, Wp, C) with windows of ws x
+    ws: the qkv and proj products over all M = B Hp Wp tokens and each
+    window's QK^T and PV (2 M N C each, N = ws^2, whatever the heads), 2
+    FLOPs a multiply-add (LN, softmax, biases, mask and residual count 0)."""
+    M, N = B * Hp * Wp, ws * ws
+    return 2 * M * C * 3 * C + 2 * M * N * C * 2 + 2 * M * C * C
+
+
 def _check(x, heads, ws):
     B, Hp, Wp, C = x.shape
     N = ws * ws
@@ -144,6 +155,8 @@ def _forward_cuda(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, rel_bias,
         float(32) ** -0.5, _cuda.stream_ptr(x.device))
     _cuda.check(rc, "fused_swin_attn_block")
     _cuda.launches["fused_swin_attn_block"] += 1
+    _cuda.flops["fused_swin_attn_block"] += fused_swin_attn_block_flops(
+        B, Hp, Wp, C, ws)
     return out
 
 

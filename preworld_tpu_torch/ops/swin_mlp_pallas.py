@@ -49,6 +49,13 @@ def fused_swin_mlp_bwd_plain(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, dy):
         return torch.autograd.grad(out, leaves, dy.to(out.dtype))
 
 
+def fused_swin_mlp_flops(M: int, C: int, Hd: int) -> int:
+    """What `torch.utils.flop_counter` counts for `fused_swin_mlp_plain` on
+    M rows of width C and hidden Hd: the fc1 and fc2 products, 2 FLOPs a
+    multiply-add (LN, GELU, biases and the residual count 0)."""
+    return 2 * M * C * Hd + 2 * M * Hd * C
+
+
 def _check(x, w1):
     C = x.shape[-1]
     Hd = w1.shape[0]
@@ -81,6 +88,7 @@ def _forward_cuda(x, ln_w, ln_b, w1, b1, w2, b2, row_scale):
         _cuda.stream_ptr(x.device))
     _cuda.check(rc, "fused_swin_mlp")
     _cuda.launches["fused_swin_mlp"] += 1
+    _cuda.flops["fused_swin_mlp"] += fused_swin_mlp_flops(M, C, Hd)
     return out
 
 

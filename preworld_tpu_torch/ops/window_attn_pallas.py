@@ -97,6 +97,21 @@ def band_window_attention_bwd_plain(qkv, bias, mask, dout, heads, ws):
                   qkv, bias, dout)
 
 
+def fused_window_attention_flops(Bn: int, N: int, C: int) -> int:
+    """What `torch.utils.flop_counter` counts for
+    `fused_window_attention_plain` on Bn windows of N tokens and C
+    channels a q, k or v: QK^T and PV, 2 Bn N N C each whatever the heads
+    (2 FLOPs a multiply-add; the scale, bias, mask and softmax count 0)."""
+    return 2 * Bn * N * N * C * 2
+
+
+def band_window_attention_flops(B: int, Hp: int, Wp: int, C: int,
+                                ws: int) -> int:
+    """K5's count on the B (Hp / ws) (Wp / ws) windows of the image layout."""
+    return fused_window_attention_flops(B * (Hp // ws) * (Wp // ws), ws * ws,
+                                        C)
+
+
 def _check(qkv, heads, N, name):
     C3 = qkv.shape[-1]
     if C3 % 3 or (C3 // 3) % heads or C3 // 3 // heads != _HEAD_DIM:
@@ -135,6 +150,8 @@ def fused_window_attention(qkv, bias, mask, heads, window_g=8):
         _cuda.stream_ptr(qkv.device))
     _cuda.check(rc, "fused_window_attention")
     _cuda.launches["fused_window_attention"] += 1
+    _cuda.flops["fused_window_attention"] += fused_window_attention_flops(
+        Bn, N, C)
     return out
 
 
@@ -163,6 +180,8 @@ def band_window_attention(qkv, bias, mask, heads, ws):
         _cuda.stream_ptr(qkv.device))
     _cuda.check(rc, "band_window_attention")
     _cuda.launches["band_window_attention"] += 1
+    _cuda.flops["band_window_attention"] += band_window_attention_flops(
+        B, Hp, Wp, C, ws)
     return out
 
 

@@ -21,13 +21,19 @@ gives `pretrain_step_s` and `finetune_step_s`.
 `--streaming`: only the streaming path, with REQUESTS timed steps, under
 the metric `6cam_occ_streaming_fps`.
 
-Prints one JSON line: `bench.py`'s keys `metric`, `value`, `unit` (and by
-default `streaming_fps`, `pretrain_step_s`, `finetune_step_s`), the card's
-nvidia-smi name and power limit (`card`), and the kernel launches of the
-last timed request and streaming step. `bench.py`'s `mfu`, `hbm_util`,
-`tflops_fwd` and `gb_accessed_fwd` come from XLA's cost analysis and are
-left out: the port counts no FLOPs of its own yet. Nothing is caught: a
-failing part fails the run with a non-zero exit and no JSON line.
+Prints one JSON line: `bench.py`'s keys `metric`, `value`, `unit`,
+`tflops_fwd` and `mfu` (and by default `streaming_fps`, `pretrain_step_s`,
+`finetune_step_s`), the card's nvidia-smi name and power limit (`card`),
+and the kernel launches of the last timed request and streaming step.
+`tflops_fwd` is the forward FLOPs of one request of the metric (a predict
+request, or a streaming step under `--streaming`), counted once outside
+the timed window by `utils/flops.py`: the dense products and convolutions
+as `torch.utils.flop_counter` defines them, plus the hand-written kernels'
+products by the same definition (K3, K4 and K7 count 0); not XLA's count,
+which `bench.py` reports on the TPU. `mfu` is those FLOPs times `value`
+over 989e12, the H100's bf16 dense peak. `hbm_util` and `gb_accessed_fwd`
+are left out: the port counts no bytes. Nothing is caught: a failing part
+fails the run with a non-zero exit and no JSON line.
 """
 
 from __future__ import annotations
@@ -41,6 +47,8 @@ import torch
 
 REQUESTS = 5
 STREAMING_STEPS = 4
+# the H100's bf16 dense tensor-core peak (NVIDIA H100 SXM data sheet)
+PEAK_FLOPS = 989e12
 
 
 def timed_min(fn, inputs) -> float:
@@ -87,12 +95,22 @@ def bench_predict(model, batch):
     return timed_min(run, varied(batch["imgs"], REQUESTS)), launches
 
 
+def flops_keys(flops: int, per_s: float) -> dict:
+    """`bench.py`'s `tflops_fwd` and `mfu` for `flops` a request at
+    `per_s` requests a second."""
+    return {"tflops_fwd": flops / 1e12, "mfu": flops * per_s / PEAK_FLOPS}
+
+
 def bench_streaming(model, batch, n: int):
-    """(least seconds of a streaming step over n, launches of the last)."""
+    """(least seconds of a streaming step over n, launches of the last,
+    the step's forward FLOPs)."""
     from ..data import frame_batch
+    from ..utils.flops import count_flops
 
     frame = frame_batch(batch, 0)
     state = {"cache": model.init_sequential_cache(frame)}
+    flops = count_flops(lambda: model.predict_sequential(frame, state["cache"]),
+                        model)["flops"]
 
     def step(imgs):
         _, state["cache"] = model.predict_sequential(dict(frame, imgs=imgs),
@@ -101,13 +119,14 @@ def bench_streaming(model, batch, n: int):
     run, launches = launch_counts(step)
     run(frame["imgs"])
     torch.cuda.synchronize()
-    return timed_min(run, varied(frame["imgs"], n)), launches
+    return timed_min(run, varied(frame["imgs"], n)), launches, flops
 
 
 def main(argv=None) -> int:
     from ..data import synthetic_batch, to_device
     from ..models import PreWorld, PreWorldConfig
     from ..utils import init_weights
+    from ..utils.flops import count_forward
     from .bench_parts import bench_train_step, card_line
 
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -129,15 +148,18 @@ def main(argv=None) -> int:
                       device)
     out = {"card": card_line(device)}
     if a.streaming:
-        s, launches = bench_streaming(model, batch, REQUESTS)
+        s, launches, flops = bench_streaming(model, batch, REQUESTS)
         out.update(metric="6cam_occ_streaming_fps", value=1.0 / s,
-                   unit="frames/s/chip", launches_per_streaming_step=launches)
+                   unit="frames/s/chip", launches_per_streaming_step=launches,
+                   **flops_keys(flops, 1.0 / s))
         print(json.dumps(out), flush=True)
         return 0
+    flops = count_forward(model, batch)["flops"]
     s, launches = bench_predict(model, batch)
     out.update(metric="6cam_occ_inference_fps", value=1.0 / s,
-               unit="frames/s/chip", launches_per_request=launches)
-    s, launches = bench_streaming(model, batch, STREAMING_STEPS)
+               unit="frames/s/chip", launches_per_request=launches,
+               **flops_keys(flops, 1.0 / s))
+    s, launches, _ = bench_streaming(model, batch, STREAMING_STEPS)
     out.update(streaming_fps=1.0 / s, launches_per_streaming_step=launches)
     del model, batch
     torch.cuda.empty_cache()
