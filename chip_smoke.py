@@ -150,15 +150,30 @@ fallback to the CPU or to a kernel's plain version:
              on a 200x200x16 field, forward and gradient.
   bench-entry  `python3 -m preworld_tpu_torch.tools.bench` in a process of
              its own: exit 0, its JSON line (printed on a line of its own)
-             with every key, every time (and `tflops_fwd`, `mfu`) finite
-             and positive, and the launches of a request (50 / 50 / 2 / 2)
-             and of a streaming step (24 / 24 / 1 / 1).
+             with every key, every time (and `tflops_fwd`, `mfu`,
+             `gb_accessed_fwd`, `hbm_util`) finite and positive, and the
+             launches of a request (50 / 50 / 2 / 2) and of a streaming
+             step (24 / 24 / 1 / 1).
   flops      `utils/flops.py::count_forward` on the card: the flagship
              predict's parameters read and built, aten and kernel FLOPs
-             and each kernel's launches (50 / 50 / 2 / 2) and FLOPs, equal
-             to the bench entry's `tflops_fwd`; then the reference config
-             on the card (bf16, kernels) and on the CPU (f32, plain
-             twins): the same FLOP total and parameters read, exactly.
+             and each kernel's launches (50 / 50 / 2 / 2) and FLOPs, its
+             bytes accessed and transcendentals (aten's, the kernels',
+             each kernel's, the 10 largest ops by bytes), equal to the
+             bench entry's `tflops_fwd` and `gb_accessed_fwd`; then the
+             reference config on the card (bf16, kernels) and on the CPU
+             (f32, plain twins): the same FLOP total and parameters read,
+             exactly; in bf16 on both: the same forward bytes,
+             transcendentals and FLOPs, and `count_step`'s FLOPs of its
+             finetune and pretrain steps (a loss and its backward); then
+             `count_step` of the flagship finetune step beside
+             train-flagship's step time, as a share of 989e12.
+  dev-tools  `python3 -m preworld_tpu_torch.tools.{bench_stages,
+             bench_bytes, bench_swin, bench_nerf_bisect --quick}`, each a
+             process of its own at the flagship sizes: exit 0, the card's
+             line, every row under the JAX tools' keys (printed), its
+             numbers finite; bench_bytes' full_predict equal to the flops
+             phase's count; bench_stages' full_predict beside the bench
+             entry's least request time (reported, not gated).
 
 In a temporary directory the script deletes at its end:
 
@@ -357,11 +372,12 @@ STREAMING_PER_STEP.update(fused_swin_attn_block=24, fused_swin_mlp=24,
 STREAMING_FRAMES = (2, 1, 0, 0)
 # the keys of the bench entry's JSON line, and those that are seconds or
 # frames per second
-BENCH_KEYS = ("metric", "value", "unit", "tflops_fwd", "mfu", "streaming_fps",
+BENCH_KEYS = ("metric", "value", "unit", "tflops_fwd", "mfu",
+              "gb_accessed_fwd", "hbm_util", "streaming_fps",
               "pretrain_step_s", "finetune_step_s", "card",
               "launches_per_request", "launches_per_streaming_step")
-BENCH_TIMES = ("value", "tflops_fwd", "mfu", "streaming_fps",
-               "pretrain_step_s", "finetune_step_s")
+BENCH_TIMES = ("value", "tflops_fwd", "mfu", "gb_accessed_fwd", "hbm_util",
+               "streaming_fps", "pretrain_step_s", "finetune_step_s")
 # Swin-B stages at 512x1408, 6 images: (C, heads, Hp, Wp, H, W), ws 12
 SWIN_STAGES = [(128, 4, 132, 360, 128, 352), (256, 8, 72, 180, 64, 176),
                (512, 16, 36, 96, 32, 88), (1024, 32, 24, 48, 16, 44)]
@@ -3348,12 +3364,134 @@ def run_offline_chain(root: str) -> dict:
     return out
 
 
-def run_flops(bench_entry) -> dict:
+def by_op_difference(a: dict, b: dict) -> dict:
+    """{op: (a's, b's)} of the ops whose byte counts differ."""
+    return {op: (a.get(op, 0), b.get(op, 0)) for op in sorted(set(a) | set(b))
+            if a.get(op, 0) != b.get(op, 0)}
+
+
+def reference_bf16_pair(**over):
+    """(CPU bf16 model, card bf16 model) of the reference config (with
+    `over`) from the same seeded weights."""
+    from preworld_tpu_torch.models import PreWorld
+    from preworld_tpu_torch.utils import init_weights
+
+    cfg = dataclasses.replace(reference_config(**over), dtype=torch.bfloat16)
+    cpu = PreWorld(cfg)
+    init_weights(cpu, seed=1, fan_in=True)
+    card = PreWorld(cfg)
+    card.load_state_dict(cpu.state_dict())
+    return cpu, card.cuda()
+
+
+def check_reference_counts() -> dict:
+    """The reference config on the card (bf16, kernels) against the CPU in
+    f32 (plain twins): the same FLOP total and parameters read; in bf16
+    on both: the forward's bytes, transcendentals, FLOPs and parameters
+    read, and `count_step`'s FLOPs of the finetune and the pretrain step,
+    integer for integer."""
+    from preworld_tpu_torch.data import (
+        synthetic_batch,
+        tiny_nerf_config,
+        to_device,
+    )
+    from preworld_tpu_torch.models import PreWorld
+    from preworld_tpu_torch.utils.flops import (
+        count_forward,
+        count_step,
+        loss_backward,
+    )
+
+    cpu, card = reference_bf16_pair()
+    ref = PreWorld(reference_config())
+    ref.load_state_dict(cpu.state_dict())
+    b = synthetic_batch(cpu.cfg, 1, seed=7, with_labels=False)
+    f32 = count_forward(ref.eval(), to_device(b, "cpu"))
+    fc = count_forward(cpu.eval(), to_device(b, "cpu"))
+    fg = count_forward(card.eval(), to_device(b, "cuda"))
+    same = (fg["flops"] == f32["flops"] and fg["params"] == f32["params"]
+            and f32["kernel_flops"] == 0 and fg["kernel_flops"] > 0)
+    status("flops", f"reference config: card {fg['flops']} (aten "
+           f"{fg['aten_flops']} + kernels {fg['kernel_flops']}), CPU "
+           f"{f32['flops']} (aten); params read {fg['params']} / "
+           f"{f32['params']}; equal {same}")
+    if not same:
+        raise AssertionError("flops: the card's reference count is not the "
+                             "CPU's")
+    out = {"card": fg["flops"], "cpu": f32["flops"],
+           "card_kernel_flops": fg["kernel_flops"], "params": fg["params"],
+           "kernels": fg["kernels"]}
+    keys = ("flops", "bytes", "aten_bytes", "kernel_bytes", "transcendentals",
+            "params")
+    out["forward"] = {k: [fg[k], fc[k]] for k in keys}
+    out["forward"]["bytes_by_kernel"] = [fg["bytes_by_kernel"],
+                                         fc["bytes_by_kernel"]]
+    # by op, cuDNN's eval BatchNorm is `cudnn_batch_norm` on the card and
+    # `native_batch_norm` on the CPU: the totals must agree
+    out["forward"]["ops_named_apart"] = by_op_difference(fg["bytes_by_op"],
+                                                         fc["bytes_by_op"])
+    if any(fg[k] != fc[k] for k in keys) or \
+            fg["bytes_by_kernel"] != fc["bytes_by_kernel"]:
+        raise AssertionError(f"flops: reference bf16 forward, card against "
+                             f"CPU: {out['forward']}")
+    for stage, over in (("finetune", {}),
+                        ("pretrain", dict(if_post_finetune=False,
+                                          if_render=True,
+                                          use_lss_depth_loss=True,
+                                          nerf=tiny_nerf_config()))):
+        cpu, card = reference_bf16_pair(**over)
+        b = synthetic_batch(cpu.cfg, 1, seed=7, with_labels=True)
+        sc = count_step(loss_backward(cpu, to_device(b, "cpu"),
+                                      torch.Generator().manual_seed(11)), cpu)
+        sg = count_step(loss_backward(card, to_device(b, "cuda"),
+                                      torch.Generator().manual_seed(11)),
+                        card)
+        out[f"{stage}_step"] = {
+            "card": sg["flops"], "cpu": sc["flops"],
+            "card_kernel_flops": sg["kernel_flops"],
+            "card_kernels": {k: v["launches"]
+                             for k, v in sg["kernels"].items()}}
+        if sg["flops"] != sc["flops"] or not sg["kernel_flops"] > 0 or \
+                sc["kernel_flops"] != 0:
+            raise AssertionError(
+                f"flops: reference {stage} step, card against CPU: "
+                f"{out[f'{stage}_step']}; by op (card, CPU) where they "
+                f"differ: {by_op_difference(sg['aten_by_op'], sc['aten_by_op'])}")
+    return out
+
+
+def count_flagship_finetune_step() -> dict:
+    """`count_step` of the flagship finetune step as `train-flagship` runs
+    it (the config file's model, remat off, 512 rays, seed 0)."""
+    from preworld_tpu_torch.data import synthetic_batch, to_device
+    from preworld_tpu_torch.train import build_model
+    from preworld_tpu_torch.utils import Config, init_weights
+    from preworld_tpu_torch.utils.flops import count_step, loss_backward
+
+    model = build_model(Config.fromfile(FINETUNE_CONFIG))
+    model.cfg = dataclasses.replace(model.cfg, remat=False)
+    init_weights(model, seed=0, fan_in=True)
+    batch = to_device(synthetic_batch(model.cfg, 1, seed=0, with_labels=True,
+                                      num_rays=512), "cuda")
+    res = count_step(loss_backward(model, batch,
+                                   torch.Generator().manual_seed(0)), model)
+    launches = {k: v["launches"] for k, v in res["kernels"].items()}
+    if launches != {k: v for k, v in EXPECTED_PER_STEP.items() if v}:
+        raise AssertionError(f"flops: flagship finetune step launches "
+                             f"{launches}")
+    return res
+
+
+def run_flops(bench_entry, train_flagship) -> dict:
     """`utils.flops.count_forward` on the card: the flagship predict
-    (params, aten and kernel FLOPs, each kernel's launches and FLOPs; the
-    bench entry's `tflops_fwd` the same count, where that phase ran), and
-    the reference config on the card (bf16, kernels) and the CPU (f32,
-    plain twins), whose totals and parameters read must be equal."""
+    (params, aten and kernel FLOPs, each kernel's launches and FLOPs, the
+    bytes accessed and transcendentals: aten's, the kernels', each kernel's
+    and the 10 largest ops; the bench entry's `tflops_fwd` and
+    `gb_accessed_fwd` the same counts, where that phase ran), the
+    reference config on the card (bf16, kernels) and the CPU (f32, plain
+    twins), whose totals and parameters read must be equal, and in bf16
+    on both (`check_reference_counts`); then `count_step` of the flagship
+    finetune step beside `train-flagship`'s step time."""
     from preworld_tpu_torch.data import synthetic_batch, to_device
     from preworld_tpu_torch.models import PreWorld, PreWorldConfig
     from preworld_tpu_torch.utils import init_weights
@@ -3373,11 +3511,13 @@ def run_flops(bench_entry) -> dict:
     launches = {k: v["launches"] for k, v in flag["kernels"].items()}
     if launches != {k: v for k, v in EXPECTED_PER_REQUEST.items() if v}:
         raise AssertionError(f"flops: flagship launches {launches}")
-    if bench_entry is not None and \
-            round(bench_entry["tflops_fwd"] * 1e12) != flag["flops"]:
+    if bench_entry is not None and (
+            round(bench_entry["tflops_fwd"] * 1e12) != flag["flops"]
+            or round(bench_entry["gb_accessed_fwd"] * 1e9) != flag["bytes"]):
         raise AssertionError(f"flops: bench entry tflops_fwd "
-                             f"{bench_entry['tflops_fwd']}, count "
-                             f"{flag['flops']}")
+                             f"{bench_entry['tflops_fwd']}, gb_accessed_fwd "
+                             f"{bench_entry['gb_accessed_fwd']}; count "
+                             f"{flag['flops']} FLOPs, {flag['bytes']} bytes")
     status("flops", f"flagship predict: params {flag['params']} "
            f"({flag['params_built']} built), {flag['flops'] / 1e9:.3f} "
            f"GFLOPs = aten {flag['aten_flops'] / 1e9:.3f} + kernels "
@@ -3385,24 +3525,128 @@ def run_flops(bench_entry) -> dict:
                f"{KERNELS[k][0]} {v['launches']} launches "
                f"{v['flops'] / 1e9:.3f} GFLOPs"
                for k, v in flag["kernels"].items()))
-    ref, card = reference_pair(reference_config())
-    b = synthetic_batch(ref.cfg, 1, seed=7, with_labels=False)
-    cpu = count_forward(ref, to_device(b, "cpu"))
-    gpu = count_forward(card, to_device(b, "cuda"))
-    same = (gpu["flops"] == cpu["flops"] and gpu["params"] == cpu["params"]
-            and cpu["kernel_flops"] == 0 and gpu["kernel_flops"] > 0)
-    status("flops", f"reference config: card {gpu['flops']} (aten "
-           f"{gpu['aten_flops']} + kernels {gpu['kernel_flops']}), CPU "
-           f"{cpu['flops']} (aten); params read {gpu['params']} / "
-           f"{cpu['params']}; equal {same}")
-    if not same:
-        raise AssertionError("flops: the card's reference count is not the "
-                             "CPU's")
-    return {"flagship": flag, "count_s": count_s,
-            "reference": {"card": gpu["flops"], "cpu": cpu["flops"],
-                          "card_kernel_flops": gpu["kernel_flops"],
-                          "params": gpu["params"],
-                          "kernels": gpu["kernels"]}}
+    status("flops", f"flagship predict: {flag['bytes']} bytes accessed = "
+           f"aten {flag['aten_bytes']} + kernels {flag['kernel_bytes']} ("
+           + ", ".join(f"{KERNELS[k][0]} {v['bytes']} in {v['launches']} "
+                       f"calls" for k, v in flag["kernels"].items())
+           + f"); {flag['transcendentals']} transcendentals ("
+           + ", ".join(f"{KERNELS[k][0]} {v['transcendentals']}"
+                       for k, v in flag["kernels"].items())
+           + f"); counted in {count_s:.1f} s")
+    status("flops", "flagship predict, the 10 largest ops by bytes: "
+           + ", ".join(f"{op} {n}" for op, n in
+                       list(flag["bytes_by_op"].items())[:10]))
+    if bench_entry is not None:
+        status("flops", f"bench entry: gb_accessed_fwd "
+               f"{bench_entry['gb_accessed_fwd']}, hbm_util "
+               f"{bench_entry['hbm_util']} (equal to the count)")
+    counts = check_reference_counts()
+    fw = counts["forward"]
+    status("flops", f"reference config in bf16, card / CPU: bytes "
+           f"{fw['bytes']}, transcendentals {fw['transcendentals']}, FLOPs "
+           f"{fw['flops']}; finetune step FLOPs "
+           f"{[counts['finetune_step'][d] for d in ('card', 'cpu')]}, "
+           f"pretrain step FLOPs "
+           f"{[counts['pretrain_step'][d] for d in ('card', 'cpu')]}; equal")
+    torch.cuda.empty_cache()
+    step = count_flagship_finetune_step()
+    torch.cuda.empty_cache()
+    res = {"flagship": {k: v for k, v in flag.items()
+                        if k not in ("aten_by_op", "bytes_by_op", "unread")},
+           "flagship_top_ops": dict(list(flag["bytes_by_op"].items())[:10]),
+           "count_s": count_s, "reference": counts,
+           "finetune_step": {k: step[k] for k in ("flops", "aten_flops",
+                                                   "kernel_flops",
+                                                   "params_with_grad")}}
+    res["finetune_step"]["kernels"] = {
+        KERNELS[k][0]: v["flops"] for k, v in step["kernels"].items()}
+    if train_flagship is not None:
+        s = train_flagship["step_ms_2_3"] / 1e3
+        res["finetune_step"]["step_s"] = s
+        res["finetune_step"]["share_of_989e12"] = step["flops"] / s / BF16_FLOPS
+    status("flops", f"flagship finetune step: {step['flops']} FLOPs (aten "
+           f"{step['aten_flops']} + kernels {step['kernel_flops']})"
+           + (f"; at train-flagship's {res['finetune_step']['step_s']:.4f} s "
+              f"a step, {res['finetune_step']['share_of_989e12']:.4f} of "
+              f"989e12" if train_flagship is not None else ""))
+    return res
+
+
+# the dev tools: the rows each prints, by its row key
+DEV_PROBES = ("encode_3frames", "plus_vt_zerocost", "plus_viewtransform",
+              "plus_bev_encoder", "full_predict")
+DEV_TOOLS = {
+    "bench_stages": ("probe", DEV_PROBES, ("ms", "delta_ms")),
+    "bench_bytes": ("probe", DEV_PROBES,
+                    ("gb", "delta_gb", "tflops", "delta_tflops")),
+    "bench_swin": ("probe", ("swin_full_6cam", "swin_stage0_6cam")
+                   + tuple(f"swin_block_stage{i}" for i in range(4)),
+                   ("ms",)),
+    "bench_nerf_bisect": ("stage", ("scatter_only_full", "scatter_5pct",
+                                    "grad_base")
+                          + tuple(f"grad_no_{t}" for t in (
+                              "depth", "semantic", "color", "entropy",
+                              "distortion")) + ("grad_trained",), ("ms",)),
+}
+
+
+def run_dev_tools(bench_entry, flops) -> dict:
+    """The four dev tools at their flagship defaults on the card, in this
+    process through their `main` (`bench_nerf_bisect --quick`): the card's
+    line first, then every row, its numbers finite (times positive);
+    `bench_bytes`' full_predict equal to the `flops` phase's count of the
+    same request, where that phase ran. `bench_stages`' full_predict
+    against the bench entry's least request time is reported, not gated."""
+    import contextlib
+    import importlib
+    import io
+
+    out = {}
+    for tool, (key, names, numbers) in DEV_TOOLS.items():
+        module = importlib.import_module(f"preworld_tpu_torch.tools.{tool}")
+        argv = ["--quick"] if tool == "bench_nerf_bisect" else []
+        t0 = time.perf_counter()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            module.main(argv)
+        seconds = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        lines = printed.getvalue().strip().splitlines()
+        for ln in lines:
+            print(f"  {tool}: {ln}", flush=True)
+        rows = [json.loads(ln) for ln in lines[1:]]
+        got = tuple(r[key] for r in rows)
+        bad = [r for r in rows if not all(
+            math.isfinite(r[k]) for k in numbers) or not all(
+            r[k] > 0 for k in numbers if k in ("ms", "gb", "tflops"))]
+        if got != names or bad or not lines[0].startswith("NVIDIA"):
+            raise AssertionError(f"dev-tools: {tool} rows {got}, expected "
+                                 f"{names}; not finite or not positive "
+                                 f"{bad}; first line {lines[0]!r}")
+        out[tool] = {"seconds": seconds,
+                     "rows": {r[key]: {k: v for k, v in r.items()
+                                       if k != key} for r in rows}}
+        status("dev-tools", f"{tool}: {len(rows)} rows in {seconds:.1f} s")
+    last = out["bench_bytes"]["rows"]["full_predict"]
+    if flops is not None:
+        want = flops["flagship"]
+        same = (round(last["tflops"] * 1e12) == want["flops"]
+                and round(last["gb"] * 1e9) == want["bytes"])
+        status("dev-tools", f"bench_bytes full_predict {last['tflops']} "
+               f"TFLOPs, {last['gb']} GB; the flops phase's count "
+               f"{want['flops']} FLOPs, {want['bytes']} bytes; equal {same}")
+        if not same:
+            raise AssertionError("dev-tools: bench_bytes' full_predict is "
+                                 "not the flops phase's count")
+    ms = out["bench_stages"]["rows"]["full_predict"]["ms"]
+    if bench_entry is not None:
+        least = 1e3 / bench_entry["value"]
+        out["full_predict_vs_bench"] = ms / least
+        status("dev-tools", f"bench_stages full_predict {ms:.3f} ms; the "
+               f"bench entry's least request {least:.3f} ms (ratio "
+               f"{ms / least:.3f}; within 10 % {abs(ms / least - 1) <= 0.1};"
+               f" reported, not gated)")
+    return out
 
 
 # ------------------------------------------ training across processes
@@ -4199,7 +4443,10 @@ def main() -> int:
                      ("pretrain-traj-flagship", run_pretrain_traj_flagship),
                      ("bench-parts", run_bench_parts),
                      ("bench-entry", run_bench_entry),
-                     ("flops", lambda: run_flops(runs.get("bench-entry")))):
+                     ("flops", lambda: run_flops(runs.get("bench-entry"),
+                                                 runs.get("train-flagship"))),
+                     ("dev-tools", lambda: run_dev_tools(
+                         runs.get("bench-entry"), runs.get("flops")))):
         runs[name] = phase(name, fn)
         if runs[name] is not None:
             status(name, "ok " + json.dumps(runs[name]))

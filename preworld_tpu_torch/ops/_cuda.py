@@ -8,17 +8,26 @@ and never reach a kernel.
 
 `launches` counts, per kernel wrapper, the calls that launched the kernel
 (plain-version calls on CPU tensors are not counted); a backward kernel
-chain counts under its own name (`*_bwd`). `flops` adds, at each forward
-launch, what `torch.utils.flop_counter` counts for the wrapper's plain
-twin at the launch's shapes (the `*_flops` function in the wrapper's
-module), so that `utils/flops.py` counts the same forward FLOPs on the
-card, where the counter cannot see a ctypes launch, as on the CPU, where
-it sees the plain twin; the backward chains add nothing.
+chain counts under its own name (`*_bwd`). `flops` adds, at each launch,
+what `torch.utils.flop_counter` counts for the wrapper's plain twin at the
+launch's shapes (the `*_flops` / `*_bwd_flops` function in the wrapper's
+module), so that `utils/flops.py` counts the same FLOPs on the card, where
+the counter cannot see a ctypes launch, as on the CPU, where it sees the
+plain twin.
+
+`bytes` and `transcendentals` are filled only while `utils/flops.py`
+counts (`set_counting`): a forward wrapper decorated with `counted` then
+runs as one kernel scope, on either device, adding its `*_bytes` (its
+operands as passed plus its result) and its `*_transcendentals`, while
+the byte counter skips every aten op inside the scope (the casts and
+allocations around a launch on the card, the plain twin on the CPU).
+Outside a count the decorator only tests one flag.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,6 +54,10 @@ KERNELS = ("fused_swin_attn_block", "fused_swin_mlp", "plane_sweep_cost_hom",
            "plane_sweep_cost")
 launches = {k: 0 for k in KERNELS}
 flops = {k: 0 for k in KERNELS}
+bytes = {k: 0 for k in KERNELS}  # noqa: A001 (the count's name)
+transcendentals = {k: 0 for k in KERNELS}
+# [counting, kernel scopes open]: see `counted`
+_scope = [False, 0]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,10 +95,69 @@ build_info: dict = {}
 
 
 def reset_launches() -> None:
-    """Set every launch count and FLOP count to 0."""
+    """Set every launch, FLOP, byte and transcendental count to 0."""
     for k in launches:
         launches[k] = 0
         flops[k] = 0
+        bytes[k] = 0
+        transcendentals[k] = 0
+
+
+def set_counting(on: bool) -> None:
+    """Turn the kernel scopes and their byte and transcendental formulas
+    on or off (`utils/flops.py`, around a count)."""
+    _scope[0] = on
+    _scope[1] = 0
+
+
+def in_kernel() -> bool:
+    """True inside a counted kernel wrapper: its ops are not counted."""
+    return _scope[1] > 0
+
+
+def tensor_bytes(t) -> int:
+    """The bytes a tensor operand counts: its elements, or its storage
+    where that is smaller (an expanded view)."""
+    if not isinstance(t, torch.Tensor):
+        return 0
+    n = t.numel() * t.element_size()
+    return min(n, t.untyped_storage().nbytes()) if n else 0
+
+
+def counted(name: str, bytes_fn, transcendentals_fn):
+    """Decorate the forward wrapper of kernel `name`: while a count runs,
+    a call is one kernel scope that adds bytes_fn(*args) and
+    transcendentals_fn(*args) under `name`, as XLA counts a custom call;
+    outside a count, or inside another kernel's scope, the call goes
+    straight through."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            if not _scope[0] or _scope[1]:
+                return fn(*args, **kwargs)
+            _scope[1] += 1
+            try:
+                out = fn(*args, **kwargs)
+            finally:
+                _scope[1] -= 1
+            bytes[name] += bytes_fn(*args, **kwargs)
+            transcendentals[name] += transcendentals_fn(*args, **kwargs)
+            return out
+        return run
+    return wrap
+
+
+def operand_bytes(*operands) -> int:
+    """`tensor_bytes` summed over the operands (None counts 0)."""
+    return sum(tensor_bytes(t) for t in operands)
+
+
+def result_bytes(shape, dtype: torch.dtype) -> int:
+    """The bytes of a result of `shape` and `dtype`."""
+    n = dtype.itemsize
+    for d in shape:
+        n *= int(d)
+    return n
 
 
 def _sources():

@@ -59,6 +59,21 @@ def bev_pool_flops(P: int, C: int, num_voxels: int) -> int:
     return 0
 
 
+def bev_pool_bytes(depth, feat, vox_idx, pix_idx, num_voxels: int):
+    """The bytes `bev_pool_fused` counts as one kernel call: its operands as
+    passed and its (num_voxels, C) result in feat's dtype. The sort and the
+    boundary pass's scratch are inside the call and not counted."""
+    return (_cuda.operand_bytes(depth, feat, vox_idx, pix_idx)
+            + _cuda.result_bytes((num_voxels, feat.shape[-1]), feat.dtype))
+
+
+def bev_pool_transcendentals(depth, feat, vox_idx, pix_idx,
+                             num_voxels: int):
+    """What `utils/flops.py` counts as transcendentals for K4's plain twin:
+    0 (products and an index add)."""
+    return 0
+
+
 def bev_pool_sorted(ids, order, depth, pix, feat, num_voxels: int):
     """K4's kernels on CUDA tensors, after the sort: the boundary pass, the
     long intervals' slices and the interval walk. ids, order from
@@ -132,6 +147,7 @@ class _BevPool(torch.autograd.Function):
         return d_depth, d_feat, None, None, None
 
 
+@_cuda.counted("bev_pool_fused", bev_pool_bytes, bev_pool_transcendentals)
 def bev_pool_fused(depth, feat, vox_idx, pix_idx, num_voxels: int):
     """K4 wrapper, differentiable in depth and feat. depth (B, N, D, Hf,
     Wf); feat (B, N, Hf, Wf, C); vox_idx, pix_idx (B, N, D, Hf, Wf).

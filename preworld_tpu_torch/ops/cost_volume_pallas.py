@@ -171,12 +171,38 @@ def plane_sweep_cost_flops(BN: int, D: int, H: int, W: int, C: int) -> int:
     return 0
 
 
+def plane_sweep_cost_hom_bytes(prev, curr, hom, bias: float = 0.0):
+    """The bytes `plane_sweep_cost_hom` counts as one kernel call: its
+    operands as passed and its (BN, D, H, W) f32 result."""
+    BN, H, W, _ = prev.shape
+    return (_cuda.operand_bytes(prev, curr, hom)
+            + _cuda.result_bytes((BN, hom.shape[1], H, W), torch.float32))
+
+
+def plane_sweep_cost_bytes(prev, curr, grid, bias: float = 0.0):
+    """The bytes `plane_sweep_cost` counts as one kernel call: its operands
+    as passed and its (BN, D, H, W) f32 result, D = grid rows / H."""
+    BN, H, W, _ = prev.shape
+    return (_cuda.operand_bytes(prev, curr, grid)
+            + _cuda.result_bytes((BN, grid.shape[1] // H, H, W),
+                                 torch.float32))
+
+
+def plane_sweep_cost_transcendentals(prev, curr, sampling, bias: float = 0.0):
+    """What `utils/flops.py` counts as transcendentals for the plain twins
+    of K3 and K7: 0 (a reciprocal, floors and products; no function of the
+    counted list)."""
+    return 0
+
+
 def _check_width(C: int, name: str) -> None:
     if C % _KERNEL_CHUNK or not 0 < C <= _KERNEL_MAX_C:
         raise ValueError(f"{name} takes C = {_KERNEL_CHUNK} k up to "
                          f"{_KERNEL_MAX_C}, got {C}")
 
 
+@_cuda.counted("plane_sweep_cost_hom", plane_sweep_cost_hom_bytes,
+               plane_sweep_cost_transcendentals)
 def plane_sweep_cost_hom(prev, curr, hom, bias: float = 0.0):
     """K3 wrapper: the CUDA kernel on a CUDA tensor, else the plain version."""
     if prev.device.type == "cpu":
@@ -199,6 +225,8 @@ def plane_sweep_cost_hom(prev, curr, hom, bias: float = 0.0):
     return out
 
 
+@_cuda.counted("plane_sweep_cost", plane_sweep_cost_bytes,
+               plane_sweep_cost_transcendentals)
 def plane_sweep_cost(prev, curr, grid, bias: float = 0.0):
     """K7 wrapper: the CUDA kernel on a CUDA tensor, else the plain version.
 

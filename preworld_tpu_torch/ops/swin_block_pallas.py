@@ -105,6 +105,38 @@ def fused_swin_attn_block_flops(B: int, Hp: int, Wp: int, C: int,
     return 2 * M * C * 3 * C + 2 * M * N * C * 2 + 2 * M * C * C
 
 
+def fused_swin_attn_block_bwd_flops(B: int, Hp: int, Wp: int, C: int,
+                                    ws: int) -> int:
+    """What `torch.utils.flop_counter` counts for
+    `fused_swin_attn_block_bwd_plain` at these shapes: the forward it
+    reruns, and each of its four products twice more (the gradients of
+    both operands). K1b recomputes qkv and the attention too."""
+    return 3 * fused_swin_attn_block_flops(B, Hp, Wp, C, ws)
+
+
+def fused_swin_attn_block_bytes(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                                rel_bias, region_ids, row_scale, heads, ws,
+                                H, W, shift):
+    """The bytes `fused_swin_attn_block` counts as one kernel call: its
+    operands as passed and its result (x's shape and dtype). qkv and the
+    attention output, which the card's kernels pass through device memory,
+    are not counted: XLA's definition of a custom call's bytes."""
+    return (_cuda.operand_bytes(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                                rel_bias, region_ids, row_scale)
+            + _cuda.result_bytes(x.shape, x.dtype))
+
+
+def fused_swin_attn_block_transcendentals(x, ln_w, ln_b, wqkv, bqkv, wproj,
+                                          bproj, rel_bias, region_ids,
+                                          row_scale, heads, ws, H, W, shift):
+    """What `utils/flops.py` counts as transcendentals for
+    `fused_swin_attn_block_plain` at these shapes: one rsqrt a token (LN1)
+    and one softmax exp a score, M + M heads N for M tokens in windows of
+    N = ws^2."""
+    M = x.numel() // x.shape[-1]
+    return M + M * heads * ws * ws
+
+
 def _check(x, heads, ws):
     B, Hp, Wp, C = x.shape
     N = ws * ws
@@ -212,6 +244,8 @@ def fused_swin_attn_block_bwd(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
         shift, float(32) ** -0.5, _cuda.stream_ptr(dev))
     _cuda.check(rc, "fused_swin_attn_block_bwd")
     _cuda.launches["fused_swin_attn_block_bwd"] += 1
+    _cuda.flops["fused_swin_attn_block_bwd"] += \
+        fused_swin_attn_block_bwd_flops(B, Hp, Wp, C, ws)
     return dx, dln[0], dln[1], dwqkv, dbqkv, dwproj, dbproj, drel
 
 
@@ -233,6 +267,8 @@ class _AttnBlock(torch.autograd.Function):
         return tuple(grads) + (None,) * 7
 
 
+@_cuda.counted("fused_swin_attn_block", fused_swin_attn_block_bytes,
+               fused_swin_attn_block_transcendentals)
 def fused_swin_attn_block(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, rel_bias,
                           region_ids, row_scale, heads, ws, H, W, shift):
     """K1 wrapper, differentiable: the CUDA kernel chains on a CUDA tensor,

@@ -56,6 +56,32 @@ def fused_swin_mlp_flops(M: int, C: int, Hd: int) -> int:
     return 2 * M * C * Hd + 2 * M * Hd * C
 
 
+def fused_swin_mlp_bwd_flops(M: int, C: int, Hd: int) -> int:
+    """What `torch.utils.flop_counter` counts for `fused_swin_mlp_bwd_plain`
+    at these shapes: the forward it reruns, and each of fc1's and fc2's
+    products twice more (the gradients of both operands). K2b recomputes
+    the forward too."""
+    return 3 * fused_swin_mlp_flops(M, C, Hd)
+
+
+def fused_swin_mlp_bytes(x, ln_w, ln_b, w1, b1, w2, b2, row_scale=None):
+    """The bytes `fused_swin_mlp` counts as one kernel call: its operands
+    as passed and its result (x's shape and dtype). The (M, Hd) hidden,
+    which the card's kernels pass through device memory, is not counted:
+    XLA's definition of a custom call's bytes."""
+    return (_cuda.operand_bytes(x, ln_w, ln_b, w1, b1, w2, b2, row_scale)
+            + _cuda.result_bytes(x.shape, x.dtype))
+
+
+def fused_swin_mlp_transcendentals(x, ln_w, ln_b, w1, b1, w2, b2,
+                                   row_scale=None):
+    """What `utils/flops.py` counts as transcendentals for
+    `fused_swin_mlp_plain` at these shapes: one rsqrt a row (LN2) and one
+    GELU a hidden element."""
+    M = x.numel() // x.shape[-1]
+    return M + M * w1.shape[0]
+
+
 def _check(x, w1):
     C = x.shape[-1]
     Hd = w1.shape[0]
@@ -132,6 +158,7 @@ def fused_swin_mlp_bwd(x, ln_w, ln_b, w1, b1, w2, b2, row_scale, dy):
         _cuda.stream_ptr(dev))
     _cuda.check(rc, "fused_swin_mlp_bwd")
     _cuda.launches["fused_swin_mlp_bwd"] += 1
+    _cuda.flops["fused_swin_mlp_bwd"] += fused_swin_mlp_bwd_flops(M, C, Hd)
     return dx, dln[0], dln[1], dw1, db1, dw2, db2
 
 
@@ -147,6 +174,8 @@ class _Mlp(torch.autograd.Function):
         return tuple(fused_swin_mlp_bwd(*ctx.saved_tensors, dy)) + (None,)
 
 
+@_cuda.counted("fused_swin_mlp", fused_swin_mlp_bytes,
+               fused_swin_mlp_transcendentals)
 def fused_swin_mlp(x, ln_w, ln_b, w1, b1, w2, b2, row_scale=None):
     """K2 wrapper, differentiable: the CUDA kernels on a CUDA tensor, else
     the plain version. Arguments as in `fused_swin_mlp_plain`."""

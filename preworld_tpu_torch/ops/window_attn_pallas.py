@@ -112,6 +112,51 @@ def band_window_attention_flops(B: int, Hp: int, Wp: int, C: int,
                                         C)
 
 
+def fused_window_attention_bwd_flops(Bn: int, N: int, C: int) -> int:
+    """What `torch.utils.flop_counter` counts for
+    `fused_window_attention_bwd_plain` at these shapes: the forward it
+    reruns, and QK^T and PV twice more each (the gradients of both
+    operands)."""
+    return 3 * fused_window_attention_flops(Bn, N, C)
+
+
+def band_window_attention_bwd_flops(B: int, Hp: int, Wp: int, C: int,
+                                    ws: int) -> int:
+    """K5b's count on the B (Hp / ws) (Wp / ws) windows of the image
+    layout."""
+    return 3 * band_window_attention_flops(B, Hp, Wp, C, ws)
+
+
+def fused_window_attention_bytes(qkv, bias, mask, heads, window_g=8):
+    """The bytes `fused_window_attention` counts as one kernel call: its
+    operands as passed and its (Bn, N, C) result in qkv's dtype."""
+    Bn, N, C3 = qkv.shape
+    return (_cuda.operand_bytes(qkv, bias, mask)
+            + _cuda.result_bytes((Bn, N, C3 // 3), qkv.dtype))
+
+
+def band_window_attention_bytes(qkv, bias, mask, heads, ws):
+    """The bytes `band_window_attention` counts as one kernel call: its
+    operands as passed and its (B, Hp, Wp, C) result in qkv's dtype."""
+    B, Hp, Wp, C3 = qkv.shape
+    return (_cuda.operand_bytes(qkv, bias, mask)
+            + _cuda.result_bytes((B, Hp, Wp, C3 // 3), qkv.dtype))
+
+
+def fused_window_attention_transcendentals(qkv, bias, mask, heads,
+                                           window_g=8):
+    """What `utils/flops.py` counts as transcendentals for
+    `fused_window_attention_plain`: one softmax exp a score, Bn heads N^2."""
+    Bn, N = qkv.shape[:2]
+    return Bn * heads * N * N
+
+
+def band_window_attention_transcendentals(qkv, bias, mask, heads, ws):
+    """K5's count on the windows of the image layout: B Hp Wp heads ws^2."""
+    B, Hp, Wp = qkv.shape[:3]
+    return B * Hp * Wp * heads * ws * ws
+
+
 def _check(qkv, heads, N, name):
     C3 = qkv.shape[-1]
     if C3 % 3 or (C3 // 3) % heads or C3 // 3 // heads != _HEAD_DIM:
@@ -136,6 +181,8 @@ def _operands(qkv, bias, mask, heads, N, name):
     return rb, m if m.data_ptr() % 16 == 0 else m.clone()
 
 
+@_cuda.counted("fused_window_attention", fused_window_attention_bytes,
+               fused_window_attention_transcendentals)
 def fused_window_attention(qkv, bias, mask, heads, window_g=8):
     """K5 forward: the CUDA kernel on a CUDA tensor, else the plain one."""
     if qkv.device.type == "cpu":
@@ -162,6 +209,8 @@ def _band_geometry(qkv, ws):
     return B, Hp, Wp, C3 // 3
 
 
+@_cuda.counted("band_window_attention", band_window_attention_bytes,
+               band_window_attention_transcendentals)
 def band_window_attention(qkv, bias, mask, heads, ws):
     """K6 forward: the CUDA kernel on a CUDA tensor, else the plain one."""
     if qkv.device.type == "cpu":
@@ -213,6 +262,8 @@ def fused_window_attention_bwd(qkv, bias, mask, dout, heads, window_g=8):
         _cuda.stream_ptr(qkv.device))
     _cuda.check(rc, "fused_window_attention_bwd")
     _cuda.launches["fused_window_attention_bwd"] += 1
+    _cuda.flops["fused_window_attention_bwd"] += \
+        fused_window_attention_bwd_flops(Bn, N, C)
     return dqkv, drel
 
 
@@ -234,6 +285,8 @@ def band_window_attention_bwd(qkv, bias, mask, dout, heads, ws):
         heads, float(_HEAD_DIM) ** -0.5, _cuda.stream_ptr(qkv.device))
     _cuda.check(rc, "band_window_attention_bwd")
     _cuda.launches["band_window_attention_bwd"] += 1
+    _cuda.flops["band_window_attention_bwd"] += \
+        band_window_attention_bwd_flops(B, Hp, Wp, C, ws)
     return dqkv, drel
 
 

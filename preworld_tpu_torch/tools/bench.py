@@ -22,18 +22,22 @@ gives `pretrain_step_s` and `finetune_step_s`.
 the metric `6cam_occ_streaming_fps`.
 
 Prints one JSON line: `bench.py`'s keys `metric`, `value`, `unit`,
-`tflops_fwd` and `mfu` (and by default `streaming_fps`, `pretrain_step_s`,
-`finetune_step_s`), the card's nvidia-smi name and power limit (`card`),
-and the kernel launches of the last timed request and streaming step.
-`tflops_fwd` is the forward FLOPs of one request of the metric (a predict
-request, or a streaming step under `--streaming`), counted once outside
-the timed window by `utils/flops.py`: the dense products and convolutions
-as `torch.utils.flop_counter` defines them, plus the hand-written kernels'
-products by the same definition (K3, K4 and K7 count 0); not XLA's count,
-which `bench.py` reports on the TPU. `mfu` is those FLOPs times `value`
-over 989e12, the H100's bf16 dense peak. `hbm_util` and `gb_accessed_fwd`
-are left out: the port counts no bytes. Nothing is caught: a failing part
-fails the run with a non-zero exit and no JSON line.
+`tflops_fwd`, `mfu`, `gb_accessed_fwd` and `hbm_util` (and by default
+`streaming_fps`, `pretrain_step_s`, `finetune_step_s`), the card's
+nvidia-smi name and power limit (`card`), and the kernel launches of the
+last timed request and streaming step. The FLOPs and bytes are those of
+one request of the metric (a predict request, or a streaming step under
+`--streaming`), counted once, outside the timed window, by
+`utils/flops.py`. `tflops_fwd`: the dense products and convolutions as
+`torch.utils.flop_counter` defines them, plus the hand-written kernels'
+products by the same definition (K3, K4 and K7 count 0). `gb_accessed_fwd`:
+the bytes each aten op reads and writes, each kernel call counting its
+operands and result, as XLA counts a custom call. Neither is XLA's count,
+which `bench.py` reports on the TPU: the eager ops are not fused. `mfu` is
+the FLOPs times `value` over 989e12, the H100's bf16 dense peak;
+`hbm_util` the bytes times `value` over 3.35e12 bytes/s, its HBM3 rate
+(NVIDIA H100 SXM data sheet). Nothing is caught: a failing part fails the
+run with a non-zero exit and no JSON line.
 """
 
 from __future__ import annotations
@@ -47,8 +51,10 @@ import torch
 
 REQUESTS = 5
 STREAMING_STEPS = 4
-# the H100's bf16 dense tensor-core peak (NVIDIA H100 SXM data sheet)
+# the H100's bf16 dense tensor-core peak and HBM3 rate (NVIDIA H100 SXM
+# data sheet)
 PEAK_FLOPS = 989e12
+HBM_BYTES_S = 3.35e12
 
 
 def timed_min(fn, inputs) -> float:
@@ -95,22 +101,26 @@ def bench_predict(model, batch):
     return timed_min(run, varied(batch["imgs"], REQUESTS)), launches
 
 
-def flops_keys(flops: int, per_s: float) -> dict:
-    """`bench.py`'s `tflops_fwd` and `mfu` for `flops` a request at
-    `per_s` requests a second."""
-    return {"tflops_fwd": flops / 1e12, "mfu": flops * per_s / PEAK_FLOPS}
+def count_keys(count: dict, per_s: float) -> dict:
+    """`bench.py`'s `tflops_fwd`, `mfu`, `gb_accessed_fwd` and `hbm_util`
+    for a request of `count` (`utils.flops.count_flops`) at `per_s`
+    requests a second."""
+    return {"tflops_fwd": count["flops"] / 1e12,
+            "mfu": count["flops"] * per_s / PEAK_FLOPS,
+            "gb_accessed_fwd": count["bytes"] / 1e9,
+            "hbm_util": count["bytes"] * per_s / HBM_BYTES_S}
 
 
 def bench_streaming(model, batch, n: int):
     """(least seconds of a streaming step over n, launches of the last,
-    the step's forward FLOPs)."""
+    the step's `count_flops`)."""
     from ..data import frame_batch
     from ..utils.flops import count_flops
 
     frame = frame_batch(batch, 0)
     state = {"cache": model.init_sequential_cache(frame)}
-    flops = count_flops(lambda: model.predict_sequential(frame, state["cache"]),
-                        model)["flops"]
+    count = count_flops(lambda: model.predict_sequential(frame, state["cache"]),
+                        model)
 
     def step(imgs):
         _, state["cache"] = model.predict_sequential(dict(frame, imgs=imgs),
@@ -119,7 +129,7 @@ def bench_streaming(model, batch, n: int):
     run, launches = launch_counts(step)
     run(frame["imgs"])
     torch.cuda.synchronize()
-    return timed_min(run, varied(frame["imgs"], n)), launches, flops
+    return timed_min(run, varied(frame["imgs"], n)), launches, count
 
 
 def main(argv=None) -> int:
@@ -148,17 +158,17 @@ def main(argv=None) -> int:
                       device)
     out = {"card": card_line(device)}
     if a.streaming:
-        s, launches, flops = bench_streaming(model, batch, REQUESTS)
+        s, launches, count = bench_streaming(model, batch, REQUESTS)
         out.update(metric="6cam_occ_streaming_fps", value=1.0 / s,
                    unit="frames/s/chip", launches_per_streaming_step=launches,
-                   **flops_keys(flops, 1.0 / s))
+                   **count_keys(count, 1.0 / s))
         print(json.dumps(out), flush=True)
         return 0
-    flops = count_forward(model, batch)["flops"]
+    count = count_forward(model, batch)
     s, launches = bench_predict(model, batch)
     out.update(metric="6cam_occ_inference_fps", value=1.0 / s,
                unit="frames/s/chip", launches_per_request=launches,
-               **flops_keys(flops, 1.0 / s))
+               **count_keys(count, 1.0 / s))
     s, launches, _ = bench_streaming(model, batch, STREAMING_STEPS)
     out.update(streaming_fps=1.0 / s, launches_per_streaming_step=launches)
     del model, batch

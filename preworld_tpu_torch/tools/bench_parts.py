@@ -44,7 +44,7 @@ REPO = Path(__file__).resolve().parents[2]
 STAGES = ("cost_volume", "nerf", "pretrain_step", "finetune_step")
 
 
-def _sync(device: torch.device) -> None:
+def sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -53,13 +53,13 @@ def timeit(fn, args, device, n: int = 4) -> float:
     """Least seconds of n runs of fn(*args) after one warm-up run, each
     with its float inputs offset by 1e-6 (i + 1)."""
     fn(*args)
-    _sync(device)
+    sync(device)
     times = []
     for i in range(n):
         a2 = [a + 1e-6 * (i + 1) if a.is_floating_point() else a for a in args]
         t0 = time.perf_counter()
         fn(*a2)
-        _sync(device)
+        sync(device)
         times.append(time.perf_counter() - t0)
     return min(times)
 

@@ -20,16 +20,25 @@ parameters the forward reads, which are those a flax `init` of the same
 call creates; the port's model also builds the heads of the other train
 stage, which `params built` adds.
 
-The number is not the JAX tool's: that reads XLA's cost analysis of the
-compiled forward, which counts every elementwise operation too and counts
-the TPU-only reformulations, such as `ops/conv3d.py::conv3d_zfold`, which
-computes each 3-D convolution as a z-banded 2-D convolution with
-exact-zero taps, so each BEV-encoder and head convolution is counted
-several times over there.
+Like the JAX tool it also prints the bytes accessed and the
+transcendentals (`utils/flops.py`): each aten op's bytes read plus
+written, each hand-written kernel counting its operands and result as one
+call, as XLA counts a custom call; one transcendental per output element
+of exp, log, sqrt, rsqrt, softmax, GELU and the like. The CPU and the card
+give the same integers.
 
-Prints `params: X M`, the forward GFLOPs (aten, kernels and their sum) and
-a line per launched kernel; returns `count_forward`'s dict with the
-device's name.
+The numbers are not the JAX tool's: that reads XLA's cost analysis of the
+compiled forward, which counts every elementwise operation as FLOPs too,
+fuses elementwise chains (whose intermediates then cost no bytes; the
+port's eager ops are not fused, so each writes and rereads its
+intermediate), and counts the TPU-only reformulations, such as
+`ops/conv3d.py::conv3d_zfold`, which computes each 3-D convolution as a
+z-banded 2-D convolution with exact-zero taps, so each BEV-encoder and
+head convolution is counted several times over there, in FLOPs and bytes.
+
+Prints `params: X M`, the forward GFLOPs (aten, kernels and their sum), a
+line per launched kernel, `bytes accessed` and `transcendentals`; returns
+`count_forward`'s dict with the device's name.
 """
 
 from __future__ import annotations
@@ -68,7 +77,11 @@ def main(argv=None) -> dict:
           f"{res['kernel_flops'] / 1e9:.2f}; FlopCounterMode's definition)")
     for name, k in res["kernels"].items():
         print(f"kernel {name}: {k['launches']} launches, "
-              f"{k['flops'] / 1e9:.2f} GFLOPs")
+              f"{k['flops'] / 1e9:.2f} GFLOPs, {k['bytes'] / 1e9:.3f} GB")
+    print(f"bytes accessed: {res['bytes'] / 1e9:.3f} GB ({res['bytes']}; "
+          f"aten {res['aten_bytes'] / 1e9:.3f}, kernels "
+          f"{res['kernel_bytes'] / 1e9:.3f})")
+    print(f"transcendentals: {res['transcendentals']}")
     return res
 
 

@@ -8,7 +8,10 @@ twin at the same shapes (what the CPU runs): then a CPU count and a card
 count of one config are the same integer (`chip_smoke.py`'s `flops` phase
 checks that on the card). The parameters the forward reads must be those
 the JAX tool counts: a flax `init` creates exactly the parameters its call
-reaches. Every comparison here is exact.
+reaches. Each backward wrapper's `*_bwd_flops` must likewise equal the
+counter's count of its plain backward, so that `count_step` (a loss and
+its backward) counts one integer on both devices. Every comparison here
+is exact.
 """
 
 import os
@@ -38,7 +41,11 @@ from preworld_tpu_torch.tools import get_flops
 from preworld_tpu_torch.train import build_model
 from preworld_tpu_torch.utils import Config
 from preworld_tpu_torch.utils.flax_bridge import _walk, torch_name
-from preworld_tpu_torch.utils.flops import count_forward
+from preworld_tpu_torch.utils.flops import (
+    count_forward,
+    count_step,
+    loss_backward,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FINETUNE = "configs/preworld/preworld_7frame_finetune.py"
@@ -260,3 +267,76 @@ def test_cli_refuses_without_a_card(tmp_path, monkeypatch):
     cfg.write_text(TINY.format(base=os.path.join(REPO, FINETUNE)))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         get_flops.main([str(cfg)])
+
+
+def _bwd_cases(g):
+    """Each backward kernel: (its plain backward on the forward cases'
+    shapes, its `*_bwd_flops` there)."""
+    B, Hp, Wp, C, heads, ws, shift = 1, 8, 8, 64, 2, 4, 2
+    ids = torch.from_numpy(shifted_window_region_ids(Hp, Wp, ws, shift))
+    x = torch.randn(B, Hp, Wp, C, generator=g)
+    k1_args = (x, torch.ones(C), torch.zeros(C),
+               torch.randn(3 * C, C, generator=g), torch.zeros(3 * C),
+               torch.randn(C, C, generator=g), torch.zeros(C),
+               torch.randn(heads, ws * ws, ws * ws, generator=g), ids, None,
+               torch.randn(x.shape, generator=g), heads, ws, 7, 7, shift)
+    M, C2, Hd = 10, 64, 256
+    x2 = torch.randn(2, 5, C2, generator=g)
+    k2_args = (x2, torch.ones(C2), torch.zeros(C2),
+               torch.randn(Hd, C2, generator=g), torch.zeros(Hd),
+               torch.randn(C2, Hd, generator=g), torch.zeros(C2), None,
+               torch.randn(x2.shape, generator=g))
+    Bn, N, C5 = 6, 16, 64
+    qkv, bias, mask = _window_inputs(g, (Bn, N), C5, 2, N, 3)
+    k5_args = (qkv, bias, mask, torch.randn(Bn, N, C5, generator=g), 2)
+    qkv6, bias6, mask6 = _window_inputs(g, (1, 8, 12), 64, 2, 16, 6)
+    k6_args = (qkv6, bias6, mask6, torch.randn(1, 8, 12, 64, generator=g),
+               2, 4)
+    return {
+        "K1b": (lambda: k1.fused_swin_attn_block_bwd(*k1_args),
+                k1.fused_swin_attn_block_bwd_flops(B, Hp, Wp, C, ws)),
+        "K2b": (lambda: k2.fused_swin_mlp_bwd(*k2_args),
+                k2.fused_swin_mlp_bwd_flops(M, C2, Hd)),
+        "K5b": (lambda: k5.fused_window_attention_bwd(*k5_args),
+                k5.fused_window_attention_bwd_flops(Bn, N, C5)),
+        "K6b": (lambda: k5.band_window_attention_bwd(*k6_args),
+                k5.band_window_attention_bwd_flops(1, 8, 12, 64, 4)),
+    }
+
+
+@pytest.mark.parametrize("kernel", ["K1b", "K2b", "K5b", "K6b"])
+def test_backward_flops_equal_the_counter_on_the_plain_backward(kernel):
+    """Each backward wrapper's FLOP function (which it adds to
+    `_cuda.flops` at a launch on the card) equals FlopCounterMode's count
+    of its plain backward (the CPU path: the rerun forward and each
+    product's two gradients) at the forward cases' shapes: 3 x the
+    forward's."""
+    run, want = _bwd_cases(torch.Generator().manual_seed(0))[kernel]
+    with FlopCounterMode(display=False) as counter:
+        run()
+    assert counter.get_total_flops() == want > 0
+    fwd = KERNEL_CASES[kernel[:2]](torch.Generator().manual_seed(0))[1]
+    assert want == 3 * fwd
+
+
+def test_count_step_equals_the_counter_on_loss_and_backward():
+    """`count_step` of the tiny finetune step (the loss dict's sum and its
+    backward, gradients on) equals FlopCounterMode's total of the same
+    loss plus backward from the same weights, batch and masks; it counts
+    more than the forward alone and reaches the parameters."""
+    cfg = tiny_config(if_post_finetune=True, if_render=False,
+                      use_lss_depth_loss=False)
+    model = PreWorld(cfg)
+    batch = to_device(synthetic_batch(cfg, 1, seed=3, with_labels=True),
+                      "cpu")
+    got = count_step(loss_backward(model, batch,
+                                   torch.Generator().manual_seed(0)), model)
+    model.zero_grad(set_to_none=True)
+    with FlopCounterMode(display=False) as counter:
+        loss_backward(model, batch, torch.Generator().manual_seed(0))()
+    assert got["flops"] == got["aten_flops"] == counter.get_total_flops()
+    assert got["kernel_flops"] == 0 and got["kernels"] == {}
+    fwd = count_forward(model.eval(), batch)["flops"]
+    assert got["flops"] > 2 * fwd
+    assert 0 < got["params_with_grad"] <= sum(
+        p.numel() for p in model.parameters())
