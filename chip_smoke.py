@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases, one status line each; any failure exits non-zero, and there is no
-fallback to the CPU or to a kernel's plain version:
+Phases, one status line each and one with the phase's seconds; any
+failure exits non-zero, and there is no fallback to the CPU or to a
+kernel's plain version:
 
   device     a CUDA card is present; its nvidia-smi name and power limit.
   build      nvcc builds the hand-written kernels (preworld_tpu_torch/csrc/)
@@ -147,13 +148,18 @@ fallback to the CPU or to a kernel's plain version:
              `python3 -m preworld_tpu_torch.tools.bench_parts`, in-process:
              the plain grid route against K7 through
              `stereo_cost_volume_fused`, and the render losses of 38400 rays
-             on a 200x200x16 field, forward and gradient.
+             on a 200x200x16 field, forward and gradient; then
+             `bench_parts --batch 2`'s finetune train step (a batch of 2,
+             38400 rays a sample): its row and peak bytes, the time finite
+             and positive.
   bench-entry  `python3 -m preworld_tpu_torch.tools.bench` in a process of
              its own: exit 0, its JSON line (printed on a line of its own)
-             with every key, every time (and `tflops_fwd`, `mfu`,
-             `gb_accessed_fwd`, `hbm_util`) finite and positive, and the
-             launches of a request (50 / 50 / 2 / 2) and of a streaming
-             step (24 / 24 / 1 / 1).
+             with every key (`bench.py`'s but `train_bench_error`, and the
+             port's `card` and launches), every time (and `tflops_fwd`,
+             `mfu`, `gb_accessed_fwd`, `hbm_util`) finite and positive,
+             `vs_baseline` equal to round(value / 8, 3) and
+             `baseline_assumed_fps` 4.0, and the launches of a request
+             (50 / 50 / 2 / 2) and of a streaming step (24 / 24 / 1 / 1).
   flops      `utils/flops.py::count_forward` on the card: the flagship
              predict's parameters read and built, aten and kernel FLOPs
              and each kernel's launches (50 / 50 / 2 / 2) and FLOPs, its
@@ -375,7 +381,8 @@ STREAMING_FRAMES = (2, 1, 0, 0)
 BENCH_KEYS = ("metric", "value", "unit", "tflops_fwd", "mfu",
               "gb_accessed_fwd", "hbm_util", "streaming_fps",
               "pretrain_step_s", "finetune_step_s", "card",
-              "launches_per_request", "launches_per_streaming_step")
+              "launches_per_request", "launches_per_streaming_step",
+              "vs_baseline", "baseline_assumed_fps", "baseline_peg_source")
 BENCH_TIMES = ("value", "tflops_fwd", "mfu", "gb_accessed_fwd", "hbm_util",
                "streaming_fps", "pretrain_step_s", "finetune_step_s")
 # Swin-B stages at 512x1408, 6 images: (C, heads, Hp, Wp, H, W), ws 12
@@ -1802,6 +1809,12 @@ def run_bench_entry():
     if missing or bad or out["metric"] != "6cam_occ_inference_fps":
         raise AssertionError(f"bench-entry: keys missing {missing}, times "
                              f"not finite and positive {bad}: {out}")
+    # `bench.py`'s peg: value over twice 4.0 frames a second
+    if (out["vs_baseline"] != round(out["value"] / 8, 3)
+            or out["baseline_assumed_fps"] != 4.0):
+        raise AssertionError(f"bench-entry: vs_baseline {out['vs_baseline']}"
+                             f", baseline_assumed_fps "
+                             f"{out['baseline_assumed_fps']}: {out}")
     for key, want in (("launches_per_request", EXPECTED_PER_REQUEST),
                       ("launches_per_streaming_step", STREAMING_PER_STEP)):
         if out[key] != {k: v for k, v in want.items() if v}:
@@ -2184,7 +2197,8 @@ def run_swint_flagship():
 
 def run_bench_parts():
     """The `cost_volume` and `nerf` stages of the port's per-stage bench,
-    in-process, with their kernel launches."""
+    in-process, with their kernel launches, then its finetune train step at
+    batch 2 (`bench_parts --batch 2`) with the step's peak memory."""
     from preworld_tpu_torch.ops import _cuda
     from preworld_tpu_torch.tools import bench_parts
 
@@ -2210,7 +2224,20 @@ def run_bench_parts():
     if launches != expected:
         raise AssertionError(f"bench-parts: launches {launches}, expected "
                              f"{expected}")
-    return {"stages": rows, "launches": launches,
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (b2,) = bench_parts.bench_train_step(
+        "configs/preworld/preworld_7frame_finetune.py", "finetune_train_step",
+        dev, batch=2)
+    b2["peak_bytes"] = torch.cuda.max_memory_allocated()
+    # the stage's wall seconds, model build and warm-up included
+    b2["wall_s"] = time.perf_counter() - t0
+    print(json.dumps(b2), flush=True)
+    if b2["stage"] != "finetune_train_step_b2" or not (
+            math.isfinite(b2["s"]) and b2["s"] > 0):
+        raise AssertionError(f"bench-parts: batch-2 finetune step {b2}")
+    return {"stages": rows + [b2], "launches": launches,
             "cumdist_mask_ms": cumdist_ms,
             "samples_per_ray": spec.num_samples}
 
@@ -4245,6 +4272,7 @@ def main() -> int:
     failures = []
 
     def phase(name, fn):
+        t0 = time.perf_counter()
         try:
             return fn()
         except Exception:  # reported below and fails the run
@@ -4252,6 +4280,8 @@ def main() -> int:
             status(name, "FAILED")
             failures.append(name)
             return None
+        finally:
+            status(name, f"{time.perf_counter() - t0:.1f} s")
 
     flag_cfg = PreWorldConfig()
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -260,3 +260,13 @@ def upsample(x: torch.Tensor, scale: Union[int, Sequence[int]],
     y = F.interpolate(to_cf(x), size=size, mode=mode,
                       align_corners=align_corners)
     return to_cl(y)
+
+
+def interpolate_to(x: torch.Tensor, sizes: Sequence[int],
+                   align_corners: bool = False) -> torch.Tensor:
+    """Resize the channel-last spatial dims (1, 2 or 3 of them) to `sizes`,
+    `F.interpolate`'s linear / bilinear / trilinear semantics."""
+    mode = {1: "linear", 2: "bilinear", 3: "trilinear"}[x.dim() - 2]
+    y = F.interpolate(to_cf(x), size=[int(s) for s in sizes], mode=mode,
+                      align_corners=align_corners)
+    return to_cl(y)

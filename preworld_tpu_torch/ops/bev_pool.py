@@ -6,11 +6,13 @@ Counterpart of `preworld_tpu/ops/bev_pool.py`:
 
 Points whose id is `num_voxels` (the out-of-range sentinel) or above are
 dropped. This is the plain version of kernel K4
-(`ops/bev_pool_pallas.py::bev_pool_fused`).
+(`ops/bev_pool_pallas.py::bev_pool_fused`). `bev_pool_dense_oracle` is
+the JAX package's O(P * V) float64 oracle, for tests.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -31,3 +33,23 @@ def bev_pool(depth, feat, vox_idx, pix_idx, num_voxels: int):
     out.index_add_(0, v[keep], vals)
     return out.to(feat.dtype)
 
+
+def _np(a) -> np.ndarray:
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+        else np.asarray(a)
+
+
+def bev_pool_dense_oracle(depth, feat, vox_idx, pix_idx, num_voxels: int):
+    """O(P * V) float64 reference on tensors or arrays, point by point; ids
+    of `num_voxels` and above are dropped. Returns a (num_voxels, C) numpy
+    array."""
+    C = feat.shape[-1]
+    d = _np(depth).reshape(-1)
+    v = _np(vox_idx).reshape(-1)
+    p = _np(pix_idx).reshape(-1)
+    f = _np(feat).reshape(-1, C)
+    out = np.zeros((num_voxels, C), np.float64)
+    for i in range(d.shape[0]):
+        if v[i] < num_voxels:
+            out[v[i]] += d[i] * f[p[i]]
+    return out

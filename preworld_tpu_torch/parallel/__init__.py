@@ -55,6 +55,9 @@ from .mesh import (
     use_mesh,
 )
 
+# `batch_shardings` / `replicate_sharding` of the JAX package stay behind:
+# they are `NamedSharding` objects, and `shard_batch` places the batch here
+# (ROADMAP P17).
 __all__ = [
     "Mesh", "all_reduce", "allreduce_grads", "batch_sums",
     "broadcast_module", "counts", "current_mesh", "draw_rows",

@@ -1,7 +1,8 @@
 """Per-stage microbenchmarks of the port, at the flagship shapes.
 
     python3 -m preworld_tpu_torch.tools.bench_parts \
-        [cost_volume|nerf|pretrain_step|finetune_step|all] [--device cuda|cpu]
+        [cost_volume|nerf|pretrain_step|finetune_step|all] [--batch N] \
+        [--device cuda|cpu]
 
 The port's counterpart of `tools/bench_parts.py`: the same stages, shapes
 and inputs, on the card unless `--device cpu` is given (no card is an
@@ -20,8 +21,10 @@ and power limit; then one JSON line per stage, under the JAX tool's keys
                  forward (`nerf_render_fwd`) and the gradient in the three
                  fields (`nerf_render_bwd`).
   pretrain_step, finetune_step
-                 one train step of `build_model` of the config file at batch
-                 1 (38400 rays), with the modules' own initial weights.
+                 one train step of `build_model` of the config file at
+                 `--batch N` (default 1; 38400 rays a sample), with the
+                 modules' own initial weights, as the stage
+                 `{pretrain,finetune}_train_step_b{N}`.
 
 Each stage runs once, then times 4 runs (3 train steps) whose float inputs
 are offset by 1e-6 (i + 1), as the JAX tool varies them; each run ends in a
@@ -126,8 +129,10 @@ def bench_nerf(device, R=38400, X=200, Y=200, Z=16, seed=0):
             {"stage": "nerf_render_bwd", "ms": bwd_s * 1e3}]
 
 
-def bench_train_step(config: str, name: str, device):
-    batch, num_rays = 1, 38400
+def bench_train_step(config: str, name: str, device, batch: int = 1):
+    """One train step of the config file's model on a synthetic batch of
+    `batch` samples of 38400 rays each, as the stage `{name}_b{batch}`."""
+    num_rays = 38400
     from ..data import synthetic_batch, to_device
     from ..train import (
         build_model,
@@ -166,6 +171,10 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("which", nargs="?", default="all",
                    choices=STAGES + ("all",))
+    p.add_argument("--batch", type=int, default=1,
+                   help="per-card train-step batch (B=2 probes whether the "
+                        "train step fits at the batch the dataset and "
+                        "multi-process training run)")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     a = p.parse_args(argv)
     if a.device == "cuda" and not torch.cuda.is_available():
@@ -179,10 +188,10 @@ def main(argv=None) -> int:
         "nerf": lambda: bench_nerf(device),
         "pretrain_step": lambda: bench_train_step(
             "configs/preworld/preworld_7frame_pretrain.py",
-            "pretrain_train_step", device),
+            "pretrain_train_step", device, a.batch),
         "finetune_step": lambda: bench_train_step(
             "configs/preworld/preworld_7frame_finetune.py",
-            "finetune_train_step", device),
+            "finetune_train_step", device, a.batch),
     }
     for name in STAGES:
         if a.which in (name, "all"):

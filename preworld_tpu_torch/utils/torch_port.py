@@ -2,7 +2,8 @@
 
 A copy of the numpy-only key maps of `preworld_tpu/utils/torch_port.py`
 (`swin_key_map`, `full_model_key_map`, `convert_full_model`,
-`merge_trees`): a reference mmcv state dict becomes flax-layout trees
+`convert_conv_bn_sequences`, `merge_trees`, `verify_tree_shapes`): a
+reference mmcv state dict becomes flax-layout trees
 (params, batch_stats) of numpy arrays, the format
 `tools/convert_torch_checkpoint.py` pickles. `overlay_flax_params` puts
 such trees onto the port's model through the bridge's rename
@@ -131,6 +132,46 @@ def _set(tree: Dict, path, value):
     for p in path[:-1]:
         node = node.setdefault(p, {})
     node[path[-1]] = value
+
+
+def convert_conv_bn_sequences(
+    state_dict: Dict[str, np.ndarray],
+    key_map: Dict[str, Tuple[str, ...]],
+):
+    """Generic converter: torch `conv.weight`/`bn.weight`... keys to flax
+    params + batch_stats given an explicit name map.
+
+    key_map: torch prefix -> flax path prefix. For each torch prefix P the
+    following leaves are translated when present:
+       P.weight (conv->kernel), P.bias, P.running_mean/var (batch_stats).
+    """
+    params: Dict = {}
+    stats: Dict = {}
+    for tprefix, fpath in key_map.items():
+        w = state_dict.get(tprefix + ".weight")
+        b = state_dict.get(tprefix + ".bias")
+        rm = state_dict.get(tprefix + ".running_mean")
+        rv = state_dict.get(tprefix + ".running_var")
+        if w is None and b is None:
+            continue
+        if rm is not None:  # norm layer
+            if w is not None:
+                _set(params, fpath + ("scale",), np.asarray(w))
+            if b is not None:
+                _set(params, fpath + ("bias",), np.asarray(b))
+            _set(stats, fpath + ("mean",), np.asarray(rm))
+            _set(stats, fpath + ("var",), np.asarray(rv))
+        else:
+            w = np.asarray(w)
+            if w.ndim >= 3:
+                _set(params, fpath + ("kernel",), _conv_w(w))
+            elif w.ndim == 2:
+                _set(params, fpath + ("kernel",), _lin_w(w))
+            else:  # norm without running stats (LN/GN)
+                _set(params, fpath + ("scale",), w)
+            if b is not None:
+                _set(params, fpath + ("bias",), np.asarray(b))
+    return params, stats
 
 
 def _cna(flax_prefix: Tuple[str, ...], torch_conv: str, torch_bn: str = None):
@@ -296,6 +337,23 @@ def merge_trees(dst: Dict, src: Dict) -> Dict:
         else:
             out[k] = v
     return out
+
+
+def verify_tree_shapes(template: Dict, ported: Dict, path=()) -> list:
+    """Return a list of (path, template_shape, ported_shape) mismatches for
+    every leaf of `ported` present in `template`."""
+    bad = []
+    for k, v in ported.items():
+        if k not in template:
+            bad.append((path + (k,), None, getattr(v, "shape", None)))
+            continue
+        t = template[k]
+        if isinstance(v, dict):
+            bad += verify_tree_shapes(t, v, path + (k,))
+        else:
+            if tuple(t.shape) != tuple(np.shape(v)):
+                bad.append((path + (k,), tuple(t.shape), tuple(np.shape(v))))
+    return bad
 
 
 def overlay_flax_params(model: torch.nn.Module, params: Mapping,
