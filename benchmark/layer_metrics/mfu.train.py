@@ -1,0 +1,16 @@
+"""Whole step's share of the card's bf16 dense peak: the reference's
+FLOPs of one step (forward and backward) (`counts/work.py`) times the traced run's
+steps a second over its unprofiled window, over 989e12."""
+
+from benchmark.counts.work import PEAK_BF16_FLOPS
+
+LAYER = "whole step"
+UNIT = "%"
+MOVES = "train_samples_per_s"
+
+
+def read(s):
+    flops = s.get("work", {}).get("flops")
+    if not flops or not s.get("rate"):
+        return None
+    return 100.0 * flops * s["rate"] / PEAK_BF16_FLOPS
