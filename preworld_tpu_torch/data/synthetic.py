@@ -21,6 +21,7 @@ from ..geometry.rays import RAY_DIM
 from ..models.nerf_head import NerfHeadConfig
 from ..models.preworld import PreWorldConfig
 from ..ops.render import RaySamplingSpec
+from ..utils import trace
 
 
 def tiny_config(input_size: Tuple[int, int] = (64, 128), num_cams: int = 2,
@@ -146,6 +147,12 @@ def frame_batch(batch, t: int):
 
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """numpy batch -> torch tensors on `device`."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+    """numpy batch -> torch tensors on `device`, under the span `upload`,
+    counting the bytes handed over (`upload_bytes`)."""
+    out = {}
+    with trace.span("upload"):
+        for k, v in batch.items():
+            a = np.ascontiguousarray(v)
+            trace.count("upload_bytes", a.nbytes)
+            out[k] = torch.from_numpy(a).to(device)
+    return out

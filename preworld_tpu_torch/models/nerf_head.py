@@ -46,6 +46,7 @@ from ..geometry import rays as ray_layout
 from ..losses.voxel import nusc_class_weights
 from ..parallel.collectives import all_reduce, replica_share
 from ..parallel.mesh import current_mesh, seq_rays
+from ..utils import trace
 from ..ops.render import (
     RaySamplingSpec,
     alpha2weight,
@@ -140,6 +141,7 @@ class _RenderRays(torch.autograd.Function):
         return tuple(out[k] for k in _OUT_KEYS)
 
     @staticmethod
+    @trace.spanned("render.backward")
     def backward(ctx, *grads):
         field, sampled, keep, rays_o, rays_d, bda, ray_mask = ctx.saved_tensors
         spec = ctx.cfg.spec
@@ -249,6 +251,7 @@ def _silog(sq, lin, count, variance_focus: float):
     return torch.sqrt((mean_sq - variance_focus * mean * mean).clamp_min(1e-12))
 
 
+@trace.spanned("render")
 def nerf_head_losses(density, semantic, color, rays, bda,
                      cfg: NerfHeadConfig) -> Dict[str, torch.Tensor]:
     """Rendering losses averaged over the batch: density (B, X, Y, Z),

@@ -62,6 +62,7 @@ from ..losses.voxel import (
     voxel_class_weights,
 )
 from ..parallel.mesh import draw_rows
+from ..utils import trace
 from .fpn import FPN_LSS, LSSFPN3D
 from .layers import ConvNormAct, MlpSequence, recompute_context
 from .nerf_head import NerfHeadConfig, nerf_head_losses
@@ -207,13 +208,15 @@ class PreWorld(nn.Module):
             context_fn=lambda: (contextlib.nullcontext(), recompute_context()),
             **kwargs)
 
+    @trace.spanned("image_backbone")
     def _backbone(self, x, stage0_only, generator):
         """Image backbone on (B*N, H, W, 3), stochastic depth drawn from
         `generator` (Swin, training)."""
         if generator is None or self.cfg.backbone != "swin":
             return self._segment(self.img_backbone, x, stage0_only)
-        drops = self.img_backbone.draw_drop_scales(x.shape[0], generator,
-                                                   stage0_only)
+        with trace.span("masks"):
+            drops = self.img_backbone.draw_drop_scales(x.shape[0], generator,
+                                                       stage0_only)
         return self._segment(self.img_backbone, x, stage0_only, drops)
 
     def _encode_image(self, imgs, generator=None):
@@ -221,13 +224,15 @@ class PreWorld(nn.Module):
         B, N = imgs.shape[:2]
         feats = self._backbone(imgs.reshape(B * N, *imgs.shape[2:]), False,
                                generator)
-        neck = self.img_neck(feats[1:])
+        with trace.span("view_transformer"):
+            neck = self.img_neck(feats[1:])
         return neck.reshape(B, N, *neck.shape[1:]), feats[0]
 
-    def _aspp_dropout(self, B, N, generator):
+    def _aspp_dropout(self, B, N, generator, device):
         """The depth net's ASPP dropout mask, scaled by 1 / keep, drawn on
         the host (under a mesh, this rank's rows of the global batch's
-        draw); None when not training or at rate 0."""
+        draw) and copied to `device`; None when not training or at rate
+        0."""
         aspp = self.view_transformer.depth_net.aspp
         if generator is None or aspp.dropout_rate == 0.0:
             return None
@@ -236,8 +241,10 @@ class PreWorld(nn.Module):
         shape = (c.input_size[0] // self.view_transformer.downsample,
                  c.input_size[1] // self.view_transformer.downsample,
                  c.neck_out_channels)
-        return draw_rows(lambda n: (torch.rand(
-            (n, *shape), generator=generator) < keep).float() / keep, B * N)
+        with trace.span("masks"):
+            return draw_rows(lambda n: (torch.rand(
+                (n, *shape), generator=generator) < keep).float() / keep,
+                B * N).to(device, non_blocking=True)
 
     def extract_voxel_feat(self, batch: Dict[str, torch.Tensor],
                            train: bool = False,
@@ -286,15 +293,17 @@ class PreWorld(nn.Module):
                     batch, fid, frame_imgs, s2keyego, curr2adj,
                     stereo_feat_prev, gen, own_ego)
                 if own_ego:
-                    voxel = shift_voxel_feature(
-                        voxel.float(), s2keyego[:, 0], s2keyego[:, fid],
-                        batch["bda"].float(), c.grid).to(voxel.dtype)
+                    with trace.span("geometry"):
+                        voxel = shift_voxel_feature(
+                            voxel.float(), s2keyego[:, 0], s2keyego[:, fid],
+                            batch["bda"].float(), c.grid).to(voxel.dtype)
             if fid == 0:
                 depth_key = depth
             bev_feats.append(voxel)
             stereo_feat_prev = stereo_feat
         return self._bev_encode(bev_feats), depth_key.float()
 
+    @trace.spanned("bev_encoder")
     def _bev_encode(self, bev_feats):
         """[adjacent, key] voxel feats (B, Z, Y, X, C) -> BEV encoder and
         final_conv -> (B, X, Y, Z, out_dim) f32."""
@@ -334,21 +343,22 @@ class PreWorld(nn.Module):
                      "curr_feat": stereo_feat,
                      "k2s_sensor": curr2adj[:, fid]},
                     c.input_size, self.view_transformer.cost_volume_bias)
-            s2pool = cams["sensor2keyego"]
-            if own_ego:
-                s2pool = _own_ego(batch["sensor2egos"][:, fid],
-                                  batch["ego2globals"][:, fid])
-            pool_vox = voxel_indices(
-                frustum_to_lidar(self.pool_frustum, s2pool, cams["intrin"],
-                                 cams["post_rot"], cams["post_tran"],
-                                 cams["bda"]),
-                c.grid)
-        drop = self._aspp_dropout(B, N, gen)
-        if drop is not None:
-            drop = drop.to(feat.device, non_blocking=True)
-        voxel, depth = self._segment(self.view_transformer, feat, cams,
-                                     cost_volume, pool_vox, drop)
-        voxel = self._segment(self.pre_process, voxel)[0]
+            with trace.span("geometry"):
+                s2pool = cams["sensor2keyego"]
+                if own_ego:
+                    s2pool = _own_ego(batch["sensor2egos"][:, fid],
+                                      batch["ego2globals"][:, fid])
+                pool_vox = voxel_indices(
+                    frustum_to_lidar(self.pool_frustum, s2pool,
+                                     cams["intrin"], cams["post_rot"],
+                                     cams["post_tran"], cams["bda"]),
+                    c.grid)
+        with trace.span("view_transformer"):
+            drop = self._aspp_dropout(B, N, gen, feat.device)
+            voxel, depth = self._segment(self.view_transformer, feat, cams,
+                                         cost_volume, pool_vox, drop)
+        with trace.span("bev_encoder"):
+            voxel = self._segment(self.pre_process, voxel)[0]
         return voxel, depth, stereo_feat
 
     def predict_attributes(self, voxel_feats):
@@ -356,6 +366,7 @@ class PreWorld(nn.Module):
         return density, self.semantic_mlp(voxel_feats), \
             self.color_mlp(voxel_feats)
 
+    @trace.spanned("bev_encoder")
     def occupancy_logits(self, voxel_feats):
         return self.occupancy_head(voxel_feats)
 
@@ -425,6 +436,7 @@ class PreWorld(nn.Module):
         return occ.to(torch.int32), geo.to(torch.int32)
 
     @torch.no_grad()
+    @trace.spanned("predict")
     def predict(self, batch: Dict[str, torch.Tensor],
                 align_after_vt: bool = False) -> Dict[str, torch.Tensor]:
         """{'semantic_occ', 'geo_occ'}: (B, X, Y, Z) int32 in [0, 17].
@@ -502,19 +514,23 @@ class PreWorld(nn.Module):
              # current sensor -> previous sensor
              "k2s_sensor": (invert_rigid(prev_pose) @ e2g @ s2e).float()},
             c.input_size, self.view_transformer.cost_volume_bias)
-        voxel, _ = self.view_transformer(feat, cams, cost_volume,
-                                         cache["pool_vox"])
-        voxel = self.pre_process(voxel)[0]
-        shifted_prev = shift_voxel_feature(
-            cache["bev_feat"].float(), s2keyego,
-            (key_inv @ prev_pose).float(), batch["bda"].float(),
-            c.grid).to(voxel.dtype)
+        with trace.span("view_transformer"):
+            voxel, _ = self.view_transformer(feat, cams, cost_volume,
+                                             cache["pool_vox"])
+        with trace.span("bev_encoder"):
+            voxel = self.pre_process(voxel)[0]
+        with trace.span("geometry"):
+            shifted_prev = shift_voxel_feature(
+                cache["bev_feat"].float(), s2keyego,
+                (key_inv @ prev_pose).float(), batch["bda"].float(),
+                c.grid).to(voxel.dtype)
         new_cache = {"bev_feat": voxel, "stereo_feat": stereo_feat,
                      "sensor2egos": s2e, "ego2globals": e2g,
                      "pool_vox": cache["pool_vox"]}
         return self._bev_encode([shifted_prev, voxel]), new_cache
 
     @torch.no_grad()
+    @trace.spanned("predict_sequential")
     def predict_sequential(self, batch: Dict[str, torch.Tensor],
                            cache: Dict[str, torch.Tensor]):
         """One streaming step -> ({'semantic_occ'}, new cache); see

@@ -28,6 +28,7 @@ from ..ops.cost_volume_pallas import (
     plane_sweep_cost_hom,
     plane_sweep_supported,
 )
+from ..utils import trace
 from .depthnet import (
     DepthNet,
     gen_stereo_grid,
@@ -48,6 +49,7 @@ def check_planar_post_aug(post_rot: torch.Tensor) -> None:
             "(post_rots[..., 2, :] == (0, 0, 1))")
 
 
+@trace.spanned("cost_volume")
 def compute_stereo_cost_volume(cv_frustum, cams, stereo, input_size, bias):
     """Temporal-stereo depth probability (B*N, D, Hc, Wc) in the feature
     dtype: softmax over D of -cost, from K3 on per-plane homographies where

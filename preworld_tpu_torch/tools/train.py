@@ -11,8 +11,13 @@ checkpoint directory; nothing found there is an error), `--auto-resume`
 tensors absent from it keep their init), `--seed`, `--validate` (mIoU of
 `--val-samples` samples after each epoch), `--synthetic` (generated
 samples, no dataset files), `--max-iters` (iterations per epoch),
-`--epochs`, `--profile-dir` (a torch.profiler trace of iterations 8-11)
-and `--cfg-options`. The model runs on the card unless `--device cpu`.
+`--epochs`, `--profile-dir` (a torch.profiler trace of iterations 8-11,
+`trace.json`, with the program's spans on: `pw.train_step` and its phases
+`pw.forward`, `pw.backward`, `pw.update`, `pw.upload`, `pw.masks`, the
+layers; `utils/trace.py`) and `--cfg-options`. The model runs on the card
+unless `--device cpu`. Each record of the work dir's metrics.jsonl gives
+`time_per_iter` and `data_wait`, the host seconds an iteration waited on
+the loader (both means over the records' iterations).
 
 Several processes (`parallel`): under `torchrun` (WORLD_SIZE > 1) each
 process joins the process group (`--dist-backend`, nccl on the card and

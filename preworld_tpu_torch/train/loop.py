@@ -26,6 +26,7 @@ import torch
 import torch.distributed as dist
 
 from ..data.synthetic import to_device
+from ..utils import trace
 from .checkpoints import latest_step, restore_checkpoint, save_checkpoint
 
 logger = logging.getLogger("preworld_tpu_torch")
@@ -66,7 +67,11 @@ def train_epochs(
     step_factory: optional callable(epoch) -> train_step, for
     epoch-dependent step functions.
     profile_dir: a `torch.profiler` trace of iterations 8-11 of the first
-    epoch, written there as a Chrome trace.
+    epoch, written there as a Chrome trace, with the program's spans
+    (`utils.trace`) on for those iterations.
+    Each record of metrics.jsonl gives, beside `time_per_iter`,
+    `data_wait`: the host seconds an iteration spent waiting on the
+    loader's next batch, averaged over the records' iterations.
     mesh: the step's `parallel` mesh; its rank 0 writes the records, the
     checkpoints and the profile.
     """
@@ -86,7 +91,10 @@ def train_epochs(
                 hook(epoch)
             t_iter = time.time()
             prof = None
+            wait = 0.0
+            t_wait = time.perf_counter()
             for it, batch in enumerate(loader):
+                wait += time.perf_counter() - t_wait
                 if max_iters_per_epoch is not None \
                         and it >= max_iters_per_epoch:
                     break
@@ -94,6 +102,7 @@ def train_epochs(
                     prof = torch.profiler.profile(activities=_activities(
                         device))
                     prof.start()
+                    trace.enable(True)
                 if prof is not None and it == 12:
                     _stop_profile(prof, profile_dir)
                     prof = None
@@ -107,12 +116,15 @@ def train_epochs(
                         "epoch": epoch,
                         "iter": it + 1,
                         "time_per_iter": round(dt, 3),
+                        "data_wait": round(wait / log_interval, 4),
                         **{k: round(v, 5) for k, v in metrics.items()},
                     }
+                    wait = 0.0
                     if main:
                         logger.info(json.dumps(rec))
                     metrics_log.write(json.dumps(rec) + "\n")
                     metrics_log.flush()
+                t_wait = time.perf_counter()
             if prof is not None:
                 _stop_profile(prof, profile_dir)
             if (epoch + 1) % checkpoint_interval == 0:
@@ -152,6 +164,7 @@ def _activities(device: torch.device):
 
 
 def _stop_profile(prof, profile_dir: str) -> None:
+    trace.enable(False)
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, "trace.json")

@@ -33,6 +33,7 @@ import torch.distributed as dist
 
 from ..parallel.collectives import allreduce_grads, counts
 from ..parallel.mesh import use_mesh
+from ..utils import trace
 
 
 def lr_schedule(base_lr: float = 1e-4, warmup_iters: int = 200,
@@ -149,25 +150,34 @@ def make_train_step(ema_decay: float = 0.999, mesh=None, **loss_kwargs):
     The forward and backward run under `parallel.use_mesh`, the gradients
     are summed over the world before the optimizer (`parallel` invariant
     3), and the metrics are the global batch's, alike on every rank. A
-    trivial mesh launches no collective."""
+    trivial mesh launches no collective.
+
+    With `utils.trace` on, the step is the span `train_step`, its phases
+    `forward` (the loss), `backward` and `update` (the gradient
+    all-reduce, the optimizer and the EMA)."""
     world = None if mesh is None or mesh.world == 1 else mesh.world_group
 
+    @trace.spanned("train_step")
     def train_step(state: TrainState, batch, generator: torch.Generator):
         model, opt = state.model, state.optimizer
         model.train()
         opt.zero_grad(set_to_none=True)
         with use_mesh(mesh):
-            losses = model.loss(batch, generator, **loss_kwargs)
-            total = sum(losses[k] for k in sorted(losses))
-            total.backward()
-        allreduce_grads(model.parameters(), world)
-        grad_norm = opt.step()
-        d = ema_decay_schedule(state.ema_updates + 1, ema_decay)
-        with torch.no_grad():
-            named = list(model.named_parameters())
-            ema = [state.ema_params[n] for n, _ in named]
-            torch._foreach_mul_(ema, d)
-            torch._foreach_add_(ema, [p for _, p in named], alpha=1.0 - d)
+            with trace.span("forward"):
+                losses = model.loss(batch, generator, **loss_kwargs)
+                total = sum(losses[k] for k in sorted(losses))
+            with trace.span("backward"):
+                total.backward()
+        with trace.span("update"):
+            allreduce_grads(model.parameters(), world)
+            grad_norm = opt.step()
+            d = ema_decay_schedule(state.ema_updates + 1, ema_decay)
+            with torch.no_grad():
+                named = list(model.named_parameters())
+                ema = [state.ema_params[n] for n, _ in named]
+                torch._foreach_mul_(ema, d)
+                torch._foreach_add_(ema, [p for _, p in named],
+                                    alpha=1.0 - d)
         state.step += 1
         state.ema_updates += 1
         metrics = {k: v.detach() for k, v in losses.items()}

@@ -14,7 +14,8 @@
     previous checkpoint readable.
   * The port's `train_epochs` and the JAX one, each driven by a trivial
     step function over the same loader, write the same `metrics.jsonl`
-    records (`time_per_iter` aside) and see the same batches.
+    records (`time_per_iter` and the port's `data_wait` aside) and see
+    the same batches.
 """
 
 import json
@@ -99,6 +100,7 @@ def _records(work_dir):
         recs = [json.loads(line) for line in f]
     for r in recs:
         r.pop("time_per_iter", None)
+        r.pop("data_wait", None)  # host timings
     return recs
 
 
