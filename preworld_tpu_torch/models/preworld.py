@@ -24,9 +24,13 @@ reference frame and the adjacent frame run under `torch.no_grad()` (the JAX
 package's `stop_gradient`), their BatchNorms still on batch statistics and
 folding them in the JAX call order; the stereo cost volume is computed
 without gradient. Stochastic depth masks and the depth net's ASPP dropout
-masks come from the caller's `torch.Generator`, drawn on the host; under a
-mesh (`parallel.use_mesh`) each rank draws the global batch's masks and
-keeps its rows, and the losses are its shares of the global batch's. With
+masks come from the caller's host `torch.Generator`, in the stereo loop's
+order of draws; `models/mask_plan.py` draws a step's masks ahead on a host
+worker thread from a copy of the generator's state while the card runs
+the step before, and uses them only when the caller's generator is in that
+state, so they are the masks inline draws give. Under a mesh
+(`parallel.use_mesh`) each rank draws the global batch's masks and keeps
+its rows, and the losses are its shares of the global batch's. With
 `cfg.remat`, `torch.utils.checkpoint` recomputes the image backbone, the
 view transformer and the two 3-D ResNets in the backward, the segments of
 the JAX package's `nn.remat`.
@@ -36,7 +40,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -61,10 +65,11 @@ from ..losses.voxel import (
     sem_scal_loss,
     voxel_class_weights,
 )
-from ..parallel.mesh import draw_rows
+from ..parallel.mesh import data_rows, draw_rows
 from ..utils import trace
 from .fpn import FPN_LSS, LSSFPN3D
 from .layers import ConvNormAct, MlpSequence, recompute_context
+from .mask_plan import Draw, MaskPlanner, StepDraws
 from .nerf_head import NerfHeadConfig, nerf_head_losses
 from .occ_head import OccHead
 from .resnet import CustomResNet3D
@@ -197,6 +202,7 @@ class PreWorld(nn.Module):
         self.semantic_mlp = MlpSequence(c.out_dim, c.out_dim * 2,
                                         c.num_classes - 1)
         self.color_mlp = MlpSequence(c.out_dim, c.out_dim * 2, 3)
+        self._mask_plan = MaskPlanner()
 
     def _segment(self, fn, *args, **kwargs):
         """fn(*args, **kwargs), under `checkpoint` when `cfg.remat` and a
@@ -208,43 +214,72 @@ class PreWorld(nn.Module):
             context_fn=lambda: (contextlib.nullcontext(), recompute_context()),
             **kwargs)
 
+    def _drop_path_on(self) -> bool:
+        return self.cfg.backbone == "swin" \
+            and self.img_backbone.drop_path_rate > 0
+
+    def _mask_draws(self, rows: int) -> List[Draw]:
+        """The host draws of a train-mode forward over `rows` (B*N) images
+        a frame, in the stereo loop's order: on each frame from the last,
+        the Swin's stochastic-depth scales (stage 0 only on a stereo-only
+        frame), then on a temporal frame the ASPP dropout mask; none at
+        rate 0. Under a mesh each is this rank's rows of the global
+        batch's draw; the mesh is read here, on the caller's thread."""
+        c = self.cfg
+        mesh_rows = data_rows()
+        out: List[Draw] = []
+        rate = self.view_transformer.depth_net.aspp.dropout_rate
+        shape = (c.input_size[0] // self.view_transformer.downsample,
+                 c.input_size[1] // self.view_transformer.downsample,
+                 c.neck_out_channels)
+        for fid in range(c.num_frames - 1, -1, -1):
+            stage0_only = fid >= c.temporal_frames
+            if self._drop_path_on():
+                out.append(_drop_path_draw(self.img_backbone, rows,
+                                           stage0_only, mesh_rows))
+            if not stage0_only and rate != 0.0:
+                out.append(_aspp_draw(rows, shape, 1.0 - rate, mesh_rows))
+        return out
+
     @trace.spanned("image_backbone")
-    def _backbone(self, x, stage0_only, generator):
-        """Image backbone on (B*N, H, W, 3), stochastic depth drawn from
-        `generator` (Swin, training)."""
-        if generator is None or self.cfg.backbone != "swin":
+    def _backbone(self, x, stage0_only, draws: Optional[StepDraws]):
+        """Image backbone on (B*N, H, W, 3), stochastic depth from `draws`
+        (Swin, training)."""
+        if draws is None or not self._drop_path_on():
             return self._segment(self.img_backbone, x, stage0_only)
         with trace.span("masks"):
-            drops = self.img_backbone.draw_drop_scales(x.shape[0], generator,
-                                                       stage0_only)
+            drops = draws.take(("drop_path", stage0_only))
         return self._segment(self.img_backbone, x, stage0_only, drops)
 
-    def _encode_image(self, imgs, generator=None):
+    def _encode_image(self, imgs, draws=None):
         """(B, N, H, W, 3) -> ((B, N, hf, wf, C_neck), stereo feat)."""
         B, N = imgs.shape[:2]
         feats = self._backbone(imgs.reshape(B * N, *imgs.shape[2:]), False,
-                               generator)
+                               draws)
         with trace.span("view_transformer"):
             neck = self.img_neck(feats[1:])
         return neck.reshape(B, N, *neck.shape[1:]), feats[0]
 
-    def _aspp_dropout(self, B, N, generator, device):
-        """The depth net's ASPP dropout mask, scaled by 1 / keep, drawn on
-        the host (under a mesh, this rank's rows of the global batch's
-        draw) and copied to `device`; None when not training or at rate
-        0."""
+    def _aspp_dropout(self, draws: Optional[StepDraws], device):
+        """The depth net's ASPP dropout mask on `device` in `cfg.dtype`,
+        scaled by 1 / keep; None when not training or at rate 0. The mask
+        comes from `draws` as bool on the host (under a mesh, this rank's
+        rows of the global batch's draw), drawn ahead from the host
+        generator's own stream (`models/mask_plan.py`) so that the CPU and
+        card runs of a step see the same masks, and is uploaded here,
+        asynchronously from pinned memory on a card, and scaled there:
+        `mask * (1 / keep)` with 1 / keep rounded from float32 to the
+        dtype, the same numbers as the f32 mask `(u < keep) / keep` cast to
+        it."""
         aspp = self.view_transformer.depth_net.aspp
-        if generator is None or aspp.dropout_rate == 0.0:
+        if draws is None or aspp.dropout_rate == 0.0:
             return None
-        c = self.cfg
-        keep = 1.0 - aspp.dropout_rate
-        shape = (c.input_size[0] // self.view_transformer.downsample,
-                 c.input_size[1] // self.view_transformer.downsample,
-                 c.neck_out_channels)
+        dtype = self.cfg.dtype
+        scale = float((torch.ones((), dtype=torch.float32)
+                       / (1.0 - aspp.dropout_rate)).to(dtype))
         with trace.span("masks"):
-            return draw_rows(lambda n: (torch.rand(
-                (n, *shape), generator=generator) < keep).float() / keep,
-                B * N).to(device, non_blocking=True)
+            kept = draws.take("aspp")
+            return kept.to(device, non_blocking=True).to(dtype).mul_(scale)
 
     def extract_voxel_feat(self, batch: Dict[str, torch.Tensor],
                            train: bool = False,
@@ -255,7 +290,12 @@ class PreWorld(nn.Module):
 
         train: draw stochastic-depth and dropout masks from `generator` (a
         host generator, required) and keep gradients for the key frame only.
-        BatchNorm follows the module's train / eval mode.
+        The masks are those of inline draws from the generator in the loop's
+        order, bit for bit, and the generator ends where those draws leave
+        it; a worker thread draws them a step ahead where it can
+        (`models/mask_plan.py`): the step that follows on the generator's
+        state finds them drawn. BatchNorm follows the module's train / eval
+        mode.
         align_after_vt: the reference's test-time protocol: pool the
         adjacent frame into its own ego, then warp its voxel feature to the
         key ego (`shift_voxel_feature`); by default it is pooled into the
@@ -268,7 +308,9 @@ class PreWorld(nn.Module):
             raise ValueError(f"expected {c.num_frames} frames, got {T}")
         if train and generator is None:
             raise ValueError("train=True needs a torch.Generator")
-        gen = generator if train else None
+        draws = self._mask_plan.step(
+            generator, self._mask_draws(B * N),
+            imgs.device.type == "cuda") if train else None
         if self.stereo_on_plane_sweep:
             check_planar_post_aug(batch["post_rots"])
         s2keyego = sensor2keyego_chain(batch["sensor2egos"],
@@ -284,14 +326,14 @@ class PreWorld(nn.Module):
             if fid >= c.temporal_frames:  # stereo-only reference frame
                 x = frame_imgs.reshape(B * N, *frame_imgs.shape[2:])
                 with torch.no_grad():
-                    stereo_feat_prev = self._backbone(x, True, gen)[0]
+                    stereo_feat_prev = self._backbone(x, True, draws)[0]
                 continue
             grads = contextlib.nullcontext() if fid == 0 else torch.no_grad()
             own_ego = align_after_vt and fid != 0
             with grads:
                 voxel, depth, stereo_feat = self._frame(
                     batch, fid, frame_imgs, s2keyego, curr2adj,
-                    stereo_feat_prev, gen, own_ego)
+                    stereo_feat_prev, draws, own_ego)
                 if own_ego:
                     with trace.span("geometry"):
                         voxel = shift_voxel_feature(
@@ -313,13 +355,12 @@ class PreWorld(nn.Module):
         return x.permute(0, 3, 2, 1, 4)
 
     def _frame(self, batch, fid, frame_imgs, s2keyego, curr2adj,
-               stereo_feat_prev, gen, own_ego=False):
+               stereo_feat_prev, draws, own_ego=False):
         """One temporal frame: image encoder, stereo cost volume, view
         transformer and pre-process net -> (voxel feat, depth, stage-0
         stereo feat). own_ego: pool into the frame's own ego instead of the
         key ego (the cost volume and the mlp input keep the key pose)."""
         c = self.cfg
-        B, N = frame_imgs.shape[:2]
         cams = {
             "sensor2keyego": s2keyego[:, fid],
             "intrin": batch["intrins"][:, fid],
@@ -332,7 +373,7 @@ class PreWorld(nn.Module):
                 batch["intrins"][:, fid], batch["post_rots"][:, fid],
                 batch["post_trans"][:, fid], batch["bda"]),
         }
-        feat, stereo_feat = self._encode_image(frame_imgs, gen)
+        feat, stereo_feat = self._encode_image(frame_imgs, draws)
         stereo_feat = stereo_feat.detach()
         with torch.no_grad():
             cost_volume = None
@@ -354,7 +395,7 @@ class PreWorld(nn.Module):
                                      cams["post_tran"], cams["bda"]),
                     c.grid)
         with trace.span("view_transformer"):
-            drop = self._aspp_dropout(B, N, gen, feat.device)
+            drop = self._aspp_dropout(draws, feat.device)
             voxel, depth = self._segment(self.view_transformer, feat, cams,
                                          cost_volume, pool_vox, drop)
         with trace.span("bev_encoder"):
@@ -544,3 +585,26 @@ def _own_ego(sensor2egos, ego2globals):
     key ego (camera 0's ego), f32."""
     return (invert_rigid(ego2globals[:, 0:1]) @ ego2globals
             @ sensor2egos).float()
+
+
+def _drop_path_draw(backbone: SwinTransformer, rows: int, stage0_only: bool,
+                    mesh_rows: Tuple[int, int]) -> Draw:
+    """The Swin's stochastic-depth scales of one frame."""
+    return Draw(("drop_path", stage0_only),
+                ("drop_path", rows, mesh_rows, stage0_only,
+                 backbone.drop_path_rate, backbone.depths),
+                lambda gen, _: backbone.draw_drop_scales(
+                    rows, gen, stage0_only, mesh_rows))
+
+
+def _aspp_draw(rows: int, shape: Tuple[int, int, int], keep: float,
+               mesh_rows: Tuple[int, int]) -> Draw:
+    """The ASPP dropout mask of one frame, `u < keep` for u uniform, as
+    bool into the draw's buffer."""
+    def draw(gen, out):
+        u = draw_rows(lambda n: torch.rand((n, *shape), generator=gen), rows,
+                      mesh_rows)
+        return torch.lt(u, keep, out=out)
+
+    return Draw("aspp", ("aspp", rows, mesh_rows, shape, keep), draw,
+                (rows, *shape))

@@ -31,7 +31,11 @@ branch per image with rate linspace(0, drop_path_rate, depth)[k], the kept
 branches scaled by 1 / keep (K1's per-image and K2's per-row `row_scale`,
 or a per-image factor on the per-block routes). `draw_drop_scales` draws
 the masks from an explicit `torch.Generator` on the host, so a checkpoint
-recompute and the CPU and card runs of one step see the same masks.
+recompute and the CPU and card runs of one step see the same masks. A
+train step takes them from `models/mask_plan.py`, which draws the next
+step's on a host worker thread from a copy of the generator's state and
+uses them only when the caller's generator is in that state: the same
+masks from the same stream, drawn while the card runs the step before.
 """
 
 from __future__ import annotations
@@ -306,11 +310,13 @@ class SwinTransformer(nn.Module):
         return self._mask_cache[key]
 
     def draw_drop_scales(self, batch: int, generator: torch.Generator,
-                         stage0_only: bool = False):
+                         stage0_only: bool = False,
+                         rows: Optional[Tuple[int, int]] = None):
         """Per-block (attention, MLP) stochastic-depth scales (B,) f32 on
         the host, drawn from `generator` block by block (attention first);
         None for a block whose rate is 0. Under a mesh, this rank's rows of
-        the global batch's draws (`parallel.draw_rows`)."""
+        the global batch's draws (`parallel.draw_rows`; `rows` its
+        (n_data, data_rank) where the caller is not inside the mesh)."""
         rates = np.linspace(0, self.drop_path_rate, sum(self.depths))
         if stage0_only:
             rates = rates[:self.depths[0]]
@@ -321,7 +327,7 @@ class SwinTransformer(nn.Module):
                 continue
             keep = 1.0 - float(rate)
             out.append(tuple(draw_rows(lambda n: (torch.rand(
-                n, generator=generator) < keep).float() / keep, batch)
+                n, generator=generator) < keep).float() / keep, batch, rows)
                 for _ in range(2)))
         return out
 

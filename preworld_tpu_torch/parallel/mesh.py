@@ -139,17 +139,25 @@ def current_mesh() -> Optional[Mesh]:
     return _ACTIVE[0]
 
 
-def draw_rows(draw: Callable[[int], torch.Tensor], n_local: int
-              ) -> torch.Tensor:
+def data_rows() -> Tuple[int, int]:
+    """(n_data, data_rank) of the current mesh; (1, 0) outside one."""
+    mesh = current_mesh()
+    return (1, 0) if mesh is None else (mesh.n_data, mesh.data_rank)
+
+
+def draw_rows(draw: Callable[[int], torch.Tensor], n_local: int,
+              rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """`draw(n)` gives n rows of random masks from a generator that every
     rank holds alike; returns this rank's `n_local` rows of the global
     batch's draw, so that each mask equals the one a single process draws
-    at the global batch."""
-    mesh = current_mesh()
-    if mesh is None or mesh.n_data == 1:
+    at the global batch. rows: (n_data, data_rank), by default the current
+    mesh's (`data_rows`); a thread that does not run inside the step's
+    `use_mesh` passes the step's."""
+    n_data, rank = data_rows() if rows is None else rows
+    if n_data == 1:
         return draw(n_local)
-    full = draw(n_local * mesh.n_data)
-    return full[mesh.data_rank * n_local:(mesh.data_rank + 1) * n_local]
+    full = draw(n_local * n_data)
+    return full[rank * n_local:(rank + 1) * n_local]
 
 
 def init_from_env(device: torch.device, backend: str) -> bool:
