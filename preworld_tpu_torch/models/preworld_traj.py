@@ -24,6 +24,12 @@ and losses) runs under `torch.utils.checkpoint`, the JAX package's `nn.remat`
 of `_future_step_losses`; the recompute folds no statistics again. Under a
 mesh every loss, `l2_traj_loss` among them, is this rank's share of the
 global batch's (`parallel` invariant 1).
+
+With `utils.trace` on, `predict` is the root span of a request, `rollout`
+holds the future-step loop of `predict` and of `loss`, `rollout_step` each
+step's rollout and `future_losses` a step's losses; the counter
+`rollout_steps` adds one for each step the loop runs (a checkpoint's
+recompute runs the step again but not the loop, so it counts nothing).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.collectives import batch_sums, replica_share
+from ..utils import trace
 from .layers import Linear, MlpSequence
 from .nerf_head import nerf_head_losses
 from .occ_head import DownScale3D
@@ -99,6 +106,7 @@ class PreWorld4DTraj(PreWorld):
         self.ego_fusion_head = EgoFusionHead(c)
         self.traj_head = MlpSequence(c, 2 * c, 2)
 
+    @trace.spanned("rollout_step")
     def rollout_step(self, voxel_feats, ego_states):
         """One future step: (B, X, Y, Z, C) f32 feats and (B, 21) ego states
         -> (fused feats (B, X, Y, Z, C), pred_traj (B, 2))."""
@@ -118,14 +126,16 @@ class PreWorld4DTraj(PreWorld):
         c = self.cfg
         voxel_feats, pred_traj = self.rollout_step(voxel_feats, ego_states)
         terms: Dict[str, torch.Tensor] = {}
-        if c.if_post_finetune:
-            terms.update(self._voxel_losses(
-                self.occupancy_logits(voxel_feats), target))
-        if c.if_render:
-            density, semantic, color = self.predict_attributes(voxel_feats)
-            terms.update(nerf_head_losses(density, semantic, color, rays, bda,
-                                          c.nerf))
-        terms["loss_traj"] = l2_traj_loss(pred_traj, traj_gt)
+        with trace.span("future_losses"):
+            if c.if_post_finetune:
+                terms.update(self._voxel_losses(
+                    self.occupancy_logits(voxel_feats), target))
+            if c.if_render:
+                density, semantic, color = self.predict_attributes(
+                    voxel_feats)
+                terms.update(nerf_head_losses(density, semantic, color, rays,
+                                              bda, c.nerf))
+            terms["loss_traj"] = l2_traj_loss(pred_traj, traj_gt)
         return voxel_feats, terms
 
     def loss(self, batch: Dict[str, torch.Tensor],
@@ -151,28 +161,35 @@ class PreWorld4DTraj(PreWorld):
             losses.update({k + "_0s": v for k, v in nerf_head_losses(
                 density, semantic, color, batch["rays"], batch["bda"],
                 c.nerf).items()})
-        for step in range(1, num_future + 1):
-            target = (batch["temporal_semantics"][:, step - 1].long()
-                      if c.if_post_finetune else None)
-            rays = batch["temporal_rays"][:, step - 1] if c.if_render else None
-            voxel_feats, terms = self._segment(
-                self._future_step_losses, voxel_feats, batch["ego_states"],
-                target, batch["temporal_trajs"][:, step - 1], rays,
-                batch["bda"])
-            losses.update({f"{k}_{step}s": v for k, v in terms.items()})
+        with trace.span("rollout"):
+            for step in range(1, num_future + 1):
+                trace.count("rollout_steps", 1)
+                target = (batch["temporal_semantics"][:, step - 1].long()
+                          if c.if_post_finetune else None)
+                rays = (batch["temporal_rays"][:, step - 1] if c.if_render
+                        else None)
+                voxel_feats, terms = self._segment(
+                    self._future_step_losses, voxel_feats,
+                    batch["ego_states"], target,
+                    batch["temporal_trajs"][:, step - 1], rays, batch["bda"])
+                losses.update({f"{k}_{step}s": v for k, v in terms.items()})
         return losses
 
     @torch.no_grad()
+    @trace.spanned("predict")
     def predict(self, batch: Dict[str, torch.Tensor],
                 num_future: int = 6) -> Dict[str, torch.Tensor]:
         """Occupancy of the current frame and of `num_future` rollout steps:
         `semantic_occ_{k}s`, (B, X, Y, Z) int32, k = 0 .. num_future."""
         voxel_feats, _ = self.extract_voxel_feat(batch)
         out = {"semantic_occ_0s": self._occupancy(voxel_feats)[0]}
-        for step in range(1, num_future + 1):
-            voxel_feats, _ = self.rollout_step(voxel_feats,
-                                               batch["ego_states"])
-            out[f"semantic_occ_{step}s"] = self._occupancy(voxel_feats)[0]
+        with trace.span("rollout"):
+            for step in range(1, num_future + 1):
+                trace.count("rollout_steps", 1)
+                voxel_feats, _ = self.rollout_step(voxel_feats,
+                                                   batch["ego_states"])
+                out[f"semantic_occ_{step}s"] = self._occupancy(
+                    voxel_feats)[0]
         return out
 
     def forward(self, batch: Dict[str, torch.Tensor],

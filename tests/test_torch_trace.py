@@ -6,6 +6,9 @@ on the CPU at the tiny configs:
   * on, predict, a streaming step, a finetune and a render train step open
     their spans nested as the program lays them out, `render.backward`
     inside `backward`;
+  * the forecasting model's request opens `predict` > `rollout` > a
+    `rollout_step` a future step and counts them in `rollout_steps`; its
+    remat train step counts each step once, not again in the recompute;
   * `upload_bytes` counts the bytes of the batch handed to the device;
   * the train loop's `--profile-dir` turns the spans on for the profiled
     iterations only, and its records carry `data_wait`.
@@ -25,7 +28,9 @@ from preworld_tpu_torch.data import (
     tiny_config,
     to_device,
 )
-from preworld_tpu_torch.models import PreWorld
+import dataclasses
+
+from preworld_tpu_torch.models import PreWorld, PreWorld4DTraj
 from preworld_tpu_torch.train import (
     create_train_state,
     make_optimizer,
@@ -148,6 +153,62 @@ def test_spans_nest(case):
             assert any(p[1] <= a and b <= p[2] for p in back)
     # the training masks are drawn only in training
     assert ("masks" in {s[0] for s in spans}) == labels
+
+
+def _traj(remat=False):
+    torch.manual_seed(0)
+    model = PreWorld4DTraj(dataclasses.replace(tiny_config(**FINETUNE),
+                                               remat=remat))
+    init_weights(model, seed=0, fan_in=True)
+    return model
+
+
+def _traj_batch(model, num_future):
+    return to_device(synthetic_batch(model.cfg, 2, seed=4, with_traj=True,
+                                     num_future=num_future), "cpu")
+
+
+def test_traj_predict_spans_and_rollout_steps():
+    """A 6-step request: `predict` holds the frame's spans and `rollout`,
+    `rollout` the six `rollout_step`s (and the heads' `bev_encoder`), and
+    `rollout_steps` counts 6; off, no range and no count."""
+    model = _traj().eval()
+    batch = _traj_batch(model, 6)
+    trace.enable(True)
+    trace.reset()
+    spans = _profiled(lambda: model.predict(batch, num_future=6))
+    trace.enable(False)
+    got = _children(spans)
+    assert got[None] == {"predict"}
+    assert got["predict"] == {*FRAME, "rollout"}
+    assert got["rollout"] == {"rollout_step", "bev_encoder"}
+    assert [s[0] for s in spans].count("rollout_step") == 6
+    assert trace.counters == {"rollout_steps": 6}
+    trace.reset()
+    assert _profiled(lambda: model.predict(batch, num_future=6)) == []
+    assert trace.counters == {}
+
+
+def test_traj_remat_step_counts_each_rollout_step_once():
+    """A remat train step at num_future 2: `rollout` in the forward holds
+    two `rollout_step`s and their `future_losses`, the recompute in the
+    backward opens them again, and `rollout_steps` counts 2, not 4."""
+    model = _traj(remat=True)
+    batch = _traj_batch(model, 2)
+    step = make_train_step(num_future=2)
+    state = create_train_state(model, make_optimizer(model.parameters()))
+    trace.enable(True)
+    trace.reset()
+    spans = _profiled(lambda: step(state, batch,
+                                   torch.Generator().manual_seed(0)))
+    trace.enable(False)
+    got = _children(spans)
+    assert "rollout" in got["forward"]
+    assert got["rollout"] == {"rollout_step", "future_losses"}
+    names = [s[0] for s in spans]
+    assert names.count("rollout_step") == 4  # twice in the recompute
+    assert names.count("future_losses") == 4
+    assert trace.counters["rollout_steps"] == 2
 
 
 def test_upload_counts_the_batch_bytes():
