@@ -22,7 +22,6 @@ from ..models.nerf_head import NerfHeadConfig
 from ..models.preworld import PreWorldConfig
 from ..ops.render import RaySamplingSpec
 from ..utils import trace
-from .staging import ring_for
 
 
 def tiny_config(input_size: Tuple[int, int] = (64, 128), num_cams: int = 2,
@@ -149,16 +148,22 @@ def frame_batch(batch, t: int):
 
 def to_device(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """numpy batch -> torch tensors on `device`, under the span `upload`,
-    counting the bytes handed over (`upload_bytes`). A CUDA device takes
-    them through its ring of pinned staging buffers (`data.staging`);
-    another gets `torch.from_numpy(...).to(device)` a key at a time."""
+    counting the bytes handed over (`upload_bytes`). For a CUDA device each
+    key is copied into pinned memory and sent on asynchronously. Then:
+    every byte has left the caller's arrays when the call returns
+    (`pin_memory()` copies synchronously); the tensors are ready in
+    current-stream order; a pinned block is not reused until its copy's
+    event has passed (the caching host allocator's guarantee); shapes and
+    dtypes are those of `torch.from_numpy(np.ascontiguousarray(v))`, so a
+    0-d array arrives as shape (1,)."""
     device = torch.device(device)
     out = {}
     with trace.span("upload"):
-        if device.type == "cuda":
-            return ring_for(device).upload(batch)
         for k, v in batch.items():
             a = np.ascontiguousarray(v)
             trace.count("upload_bytes", a.nbytes)
-            out[k] = torch.from_numpy(a).to(device)
+            t = torch.from_numpy(a)
+            if device.type == "cuda":
+                t = t.pin_memory()
+            out[k] = t.to(device, non_blocking=True)
     return out
