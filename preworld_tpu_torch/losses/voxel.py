@@ -86,36 +86,62 @@ def _bce_of_ratio(r):
     return -torch.log(r.clamp(1e-12, 1.0))
 
 
+def _class_masks(C, target, camera_mask, ignore_index):
+    """(m (P, 1) f32, [t = c] (P, C) bool) over the P voxels."""
+    m = _valid_mask(target, ignore_index, camera_mask).reshape(-1, 1)
+    classes = torch.arange(C, device=target.device)
+    return m, target.reshape(-1, 1) == classes
+
+
+class _SemScalSums(torch.autograd.Function):
+    """The per-class sums of `sem_scal_loss`, one (C, 4) f32 stack of
+    columns (n_fg, nominator, sum_p, n_bg): with p = softmax(logits) and m
+    the valid mask, n_fg_c = sum m [t = c], nominator_c = sum m p_c [t = c],
+    sum_p_c = sum m p_c and n_bg_c = sum m - n_fg_c, over every voxel at
+    once. Only nominator and sum_p depend on the logits, and the backward
+    is their closed form dp_c = m (g_nominator_c [t = c] + g_sum_p_c)
+    through the softmax recomputed from the logits: it saves only its own
+    inputs."""
+
+    @staticmethod
+    def forward(ctx, logits, target, camera_mask, ignore_index):
+        ctx.ignore_index = ignore_index
+        ctx.save_for_backward(logits, target, camera_mask)
+        m, is_c = _class_masks(logits.shape[-1], target, camera_mask,
+                               ignore_index)
+        n_fg = (is_c * m).sum(0)
+        p = torch.softmax(logits.reshape(is_c.shape), -1)
+        mp = p.to(torch.promote_types(p.dtype, m.dtype)).mul_(m)
+        sum_p = mp.sum(0)
+        nominator = mp.mul_(is_c).sum(0)
+        return torch.stack([n_fg, nominator, sum_p, m.sum() - n_fg], 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, target, camera_mask = ctx.saved_tensors
+        m, is_c = _class_masks(logits.shape[-1], target, camera_mask,
+                               ctx.ignore_index)
+        g_nominator, g_sum_p = g[:, 1], g[:, 2]
+        dp = torch.where(is_c, g_nominator + g_sum_p, g_sum_p).mul_(m)
+        p = torch.softmax(logits.reshape(is_c.shape), -1)
+        dx = torch._softmax_backward_data(dp.to(p.dtype), p, -1, p.dtype)
+        return dx.reshape(logits.shape), None, None, None
+
+
 def sem_scal_loss(logits, target, ignore_index: int = 255,
                   camera_mask: Optional[torch.Tensor] = None):
     """Class-wise precision / recall / specificity BCE."""
-    C = logits.shape[-1]
-    p = torch.softmax(logits, dim=-1)
-    m = _valid_mask(target, ignore_index, camera_mask)
-    sums = []
-    for c in range(C):
-        pc = p[..., c] * m
-        is_c = (target == c).float()
-        fg = is_c * m
-        sums.append(torch.stack([
-            fg.sum(), (pc * fg).sum(), pc.sum(), (m * (1.0 - is_c)).sum(),
-            ((1.0 - pc) * (1.0 - is_c) * m).sum()]))
-    sums, = batch_sums(torch.stack(sums))
-    loss = logits.new_zeros(())
-    count = logits.new_zeros(())
-    for c in range(C):
-        n_fg, nominator, sum_p, n_bg, spec_num = sums[c]
-        present = (n_fg > 0).float()
-        precision = nominator / sum_p.clamp_min(1e-12)
-        recall = nominator / n_fg.clamp_min(1e-12)
-        spec = spec_num / n_bg.clamp_min(1e-12)
-        zero = logits.new_zeros(())
-        loss_c = (torch.where(sum_p > 0, _bce_of_ratio(precision), zero)
-                  + _bce_of_ratio(recall)
-                  + torch.where(n_bg > 0, _bce_of_ratio(spec), zero))
-        loss = loss + present * loss_c
-        count = count + present
-    return loss / count.clamp_min(1.0) * replica_share()
+    sums, = batch_sums(_SemScalSums.apply(logits, target, camera_mask,
+                                          ignore_index))
+    n_fg, nominator, sum_p, n_bg = sums.unbind(1)
+    # rows: precision, recall, specificity; each term 0 where its
+    # denominator is (recall's where n_fg is, as `present` makes it)
+    num = torch.stack([nominator, nominator, n_bg - sum_p + nominator])
+    den = torch.stack([sum_p, n_fg, n_bg])
+    bce = torch.where(den > 0, _bce_of_ratio(num / den.clamp_min(1e-12)), 0.0)
+    present = (n_fg > 0).float()
+    loss = (bce.sum(0) * present).sum()
+    return loss / present.sum().clamp_min(1.0) * replica_share()
 
 
 def geo_scal_loss(logits, target, ignore_index: int = 255,

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from preworld_tpu.losses import voxel as jl
 from preworld_tpu.models.nerf_head import nusc_class_weights as jax_nusc
@@ -77,6 +78,95 @@ def test_loss_and_grad_match_jax(name):
     (got_g,) = torch.autograd.grad(got, lt)
     np.testing.assert_allclose(float(got.detach()), float(want), **TOL)
     np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), **TOL)
+
+
+def _sem_scal_edge(name):
+    """`_case()` with its target or camera mask bent into one of
+    sem_scal's edge cases."""
+    logits, target, cam = _case()
+    if name == "class_absent":  # present 0 for classes 3 and 17
+        target = np.where(np.isin(target, (3, 17)), 255, target)
+    elif name == "one_class":  # every valid voxel class 5: n_bg 0 there
+        target = np.where(target == 255, 255, 5)
+    elif name == "all_ignored":  # count 0
+        target = np.full_like(target, 255)
+    elif name == "all_masked_off":
+        cam = np.zeros_like(cam)
+    elif name == "mask_zeros":  # half the grid off, and class 2 with it
+        cam = cam.copy()
+        cam[:, :5] = False
+        cam[target == 2] = False
+    return logits, target, cam
+
+
+@pytest.mark.parametrize("name", ["class_absent", "one_class", "all_ignored",
+                                  "all_masked_off", "mask_zeros"])
+def test_sem_scal_edge_cases_match_jax(name):
+    logits, target, cam = _sem_scal_edge(name)
+    jc = None if name in ("class_absent", "one_class", "all_ignored") \
+        else jnp.asarray(cam)
+    want, want_g = jax.jit(jax.value_and_grad(lambda lg: jl.sem_scal_loss(
+        lg, jnp.asarray(target), camera_mask=jc)))(jnp.asarray(logits))
+    lt = torch.from_numpy(logits).requires_grad_(True)
+    got = tl.sem_scal_loss(lt, torch.from_numpy(target).long(),
+                           camera_mask=None if jc is None
+                           else torch.from_numpy(cam))
+    (got_g,) = torch.autograd.grad(got, lt)
+    np.testing.assert_allclose(float(got.detach()), float(want), **TOL)
+    np.testing.assert_allclose(got_g.numpy(), np.asarray(want_g), **TOL)
+    if name in ("all_ignored", "all_masked_off"):
+        assert float(got.detach()) == 0.0 and not got_g.any()
+
+
+class _Ops(TorchDispatchMode):
+    """Counts the aten ops dispatched under it, views left out."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.n += not func.is_view
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("with_cam", [False, True])
+def test_sem_scal_dispatches_under_100_ops(with_cam):
+    """One forward and backward of sem_scal_loss dispatches a few dozen
+    ops, whatever the number of classes (a loop over the 18 classes
+    dispatched ~1,950)."""
+    logits, target, cam = _case()
+    lt = torch.from_numpy(logits).requires_grad_(True)
+    ops = _Ops()
+    with ops:
+        loss = tl.sem_scal_loss(lt, torch.from_numpy(target).long(),
+                                camera_mask=torch.from_numpy(cam)
+                                if with_cam else None)
+        loss.backward()
+    assert 0 < ops.n <= 100
+
+
+def test_sem_scal_saves_only_its_inputs():
+    """The backward's residuals are the logits and target themselves and
+    the (C,)-vectors of the formula: no (P, C) or (P,) tensor of its
+    own."""
+    logits, target, _ = _case()
+    lt = torch.from_numpy(logits).requires_grad_(True)
+    tt = torch.from_numpy(target).long()
+    saved = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        saved[st.data_ptr()] = (st.nbytes(), t.numel())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        tl.sem_scal_loss(lt, tt)
+    inputs = {t.untyped_storage().data_ptr() for t in (lt, tt)}
+    own = [v for k, v in saved.items() if k not in inputs]
+    assert all(numel <= 4 * C for _, numel in own)
+    inputs_bytes = sum(t.untyped_storage().nbytes() for t in (lt, tt))
+    assert sum(b for b, _ in saved.values()) <= inputs_bytes + 64 * C * 4
 
 
 @pytest.mark.parametrize("num_classes,balance", [(18, True), (18, False),
